@@ -1,6 +1,5 @@
-"""Benchmark: path-traced paths per second on one chip, across the
-reference's workload classes, plus the backward (gradient) pass and a
-model-based speed-of-light fraction.
+"""Benchmark: path-traced paths per second on one device, across the
+reference's workload classes, plus the backward (gradient) pass.
 
 Headline metric (the JSON line's ``value``): museum-scene paths/s —
 the reference flagship (146 shapes, 108 area lights, ``SURVEY.md``) at
@@ -11,46 +10,31 @@ path, ``src/tracer.rs:99-123``), including all bounce and shadow rays.
 ``extras`` carries the other BASELINE-named workloads:
   - ``mesh70k_paths_per_sec``: bunny-class surface mesh (~70k tris,
     BASELINE config 3's class; reference workload slot
-    ``src_ts/client/index.ts:213-222``) through the flattened wavefront
-    + Pallas cluster kernels.
+    ``src_ts/client/index.ts:213-222``) through the flattened wavefront.
   - ``cloud100k_paths_per_sec``: the 100k-triangle procedural cloud
     (``index.ts:224-226``), same path.
-  - ``cloud300k_paths_per_sec``: a 300k-triangle cloud — past the
-    probe kernel's VMEM table budget, so it exercises the HBM-streamed
-    tile-DMA body (the x8-scale high-poly workload class).
+  - ``cloud300k_paths_per_sec``: a 300k-triangle cloud (the x8-scale
+    high-poly workload class).
   - ``backward_grad_rays_per_sec``: value_and_grad of the scan-form
     integrator on the museum w.r.t. materials + camera (BASELINE.md:
     "backward grad rays/sec measured alongside forward"): 262,144
     rays x 5 iterations with per-bounce rematerialization, plus
     half-batch and no-remat variants and XLA-reported gradient
-    temp memory.  r05: the torus march differentiates by implicit
-    function theorem (``ops/intersect.py::tori_march`` custom_vjp) —
-    one sdf VJP at the root instead of 24+4 unrolled steps of saved
-    residuals — lifting this number 117k -> ~167k rays/s; the
-    throughput DECLINES with batch size for forward and backward
-    alike (working-set effect; see ``examples/profile_backward.py``'s
-    two-sided sweep), so batch is always reported alongside.  The
-    no-remat variant may still exceed the 16 GB chip; it runs LAST,
-    its execution is wrapped so a failure (runtime OOM or
-    compile-helper death) is recorded as a *result*
-    (``backward_noremat_failed`` + temp size + error head) — the
-    remat-tradeoff datum, not a crash.  See the memory-gating note
-    below for why ``memory_analysis()`` cannot pre-decide this.
+    temp memory.  The no-remat variant runs LAST and its failure
+    (compile or runtime) is recorded as a *result*
+    (``backward_noremat_failed`` + temp size + error head).
   - ``adaptive_1080p_paths_per_sec``: 1920x1080 variance-guided
-    adaptive sampling, single chip (BASELINE config 5's 1-chip half).
-  - ``museum_sol_pct`` / ``mesh70k_sol_pct`` / ``cloud100k_sol_pct``:
-    achieved fraction of estimated VPU peak for the fused dense kernel
-    mix (_sol_model) and for the flattened-traversal kernel mix
-    (_sol_model_flat).
+    adaptive sampling, single device (BASELINE config 5's 1-device
+    half).
 
-Robustness contract (learned from round 3, where a 20 GB HLO-temp OOM
-in the final stage destroyed every already-measured number): every
-stage runs under ``_stage``, which catches failures into
-``extras["failures"]`` and emits the partial result set after EVERY
-stage — one flushed ``bench-stage:`` line on stderr plus a rewrite of
+Every result names the device it ran on (platform, kind, count, and
+the card's name and power limit from ``nvidia-smi``).  Every stage runs
+under ``_stage``, which records failures into ``extras["failures"]``
+and emits the partial result set after EVERY stage — one flushed
+``bench-stage:`` line on stderr plus a rewrite of
 ``BENCH_PARTIAL.json`` — so a hard kill can lose at most the stage in
 flight.  The single stdout JSON line still prints exactly once at the
-end.
+end, and the process exits non-zero when any stage failed.
 
 ``vs_baseline``: the reference publishes no numbers (BASELINE.md); the
 only throughput machinery it documents is the worker auto-tuner's
@@ -67,13 +51,10 @@ import time
 import numpy as np
 
 # NOTE on memory gating: XLA's ``memory_analysis().temp_size_in_bytes``
-# on this stack reports TOTAL temp buffer bytes, not peak simultaneous
-# allocation — the museum remat backward reports ~19 GB of temps yet
-# executes fine on the 16 GB chip (measured).  So the pre-check cannot
-# decide runnability; instead every backward variant ATTEMPTS execution
-# under try/except, a runtime OOM is recorded as the result, and the
-# riskiest variant (no-remat) runs as the LAST stage so even an
-# unrecoverable failure cannot destroy earlier measurements.
+# reports TOTAL temp buffer bytes, not peak simultaneous allocation, so
+# it cannot decide runnability; every backward variant ATTEMPTS
+# execution, a failure is recorded as the result, and the riskiest
+# variant (no-remat) runs as the LAST stage.
 
 
 def _bench_queue(fn, prep, scene, settings, cam, W, H, S, B, n_iters=3,
@@ -110,76 +91,18 @@ def _bench_queue(fn, prep, scene, settings, cam, W, H, S, B, n_iters=3,
     return done / dt, tests / done
 
 
-def _sol_model(scene, tests_per_path, paths_per_sec):
-    """Model-based speed-of-light fraction for the fused dense kernel
-    mix.
-
-    Per-primitive-test FLOP estimates (counted from the kernel bodies
-    in ops/scene_pallas.py; a flop = one VPU lane op, FMA = 2):
-    plane ~16, sphere ~28, triangle ~64, aarect ~20, square ~14,
-    torus ~560 (24 over-relaxed march steps + 4 Newton polishes at
-    ~17 flops per SDF/derivative eval — the march dominates the museum
-    mix).  VPU peak is estimated as 8x128 lanes x 940 MHz x 2
-    (FMA) ~ 1.9 TFLOP/s per v5e core; the MXU is idle in this kernel
-    mix (intersection math is elementwise by design — K=3 dots on the
-    MXU would run bf16 and break hit precision).  The model counts
-    only primitive-test flops, so estimator/RNG/accumulation overhead
-    makes the true fraction slightly higher than reported.
-    """
-    FLOPS = {0: 16.0, 1: 28.0, 2: 64.0, 3: 560.0, 4: 20.0, 5: 14.0}
-    ptype = np.asarray(scene.ptype)
-    n_total = len(ptype)
-    flops_per_trace = sum(FLOPS[int(t)] for t in ptype)
-    traces_per_path = tests_per_path / n_total
-    flops_per_path = traces_per_path * flops_per_trace
-    vpu_peak = 1.9e12
-    return 100.0 * paths_per_sec * flops_per_path / vpu_peak
-
-
-_PRIM_FLOPS = {0: 16.0, 1: 28.0, 2: 64.0, 3: 560.0, 4: 20.0, 5: 14.0}
-_SLAB_FLOPS = 30.0     # per ray x cluster-AABB slab test (select step)
-_SHADE_FLOPS = 400.0   # estimator + RNG + bookkeeping per lane-iteration
-_VPU_PEAK = 1.9e12
-
-
-def _sol_model_flat(scene, prep, B, iters_per_sec):
-    """Speed-of-light fraction for the FLATTENED wavefront
-    (``ops/wavefront.py``): every outer loop iteration runs, at full
-    lane width B regardless of per-lane state,
-
-      - one dense trace over the NON-clustered primitives (SCAN);
-      - one select pass: B x C cluster-AABB slab tests producing TWO
-        candidates (``probe_pallas.select_blocks`` /
-        ``cluster._rays_vs_boxes``);
-      - TWO probe passes: B x G primitive tests of each candidate
-        (``probe_pallas.probe_blocks_min``);
-      - one ``_shade_core`` evaluation (cheap relative, modeled as a
-        constant per lane).
-
-    So hardware flops/s = B * iters/s * (F_dense + C*F_slab +
-    2*G*F_probe + F_shade), and SOL% is that against the VPU peak.
-    This counts the work the machine actually executes (dead/masked
-    lanes still burn VPU cycles) — the model therefore measures KERNEL
-    efficiency; lane OCCUPANCY losses show up separately as paths/s vs
-    iters/s.  Known non-flop time the model EXCLUDES (so the reported
-    fraction is an underestimate of machine busyness): the two
-    packed-row gathers per iteration (~0.2-0.4 ms each per gather OP
-    at 32k lanes, measured v5e) and the loop's state bookkeeping.
-    """
-    cs = prep.cluster
-    C, G = cs.blocks.shape[0], cs.blocks.shape[1]
-    ptype = np.asarray(scene.ptype)
-    total_flops = sum(_PRIM_FLOPS[int(t)] for t in ptype)
-    sids = np.asarray(cs.slot_to_sid)
-    clustered_flops = sum(_PRIM_FLOPS[int(ptype[s])] for s in sids if s >= 0)
-    f_dense = total_flops - clustered_flops
-    # probe flops: mean primitive cost over the cluster table (padding
-    # slots still execute the type-switch; count them as the cheapest)
-    btype = np.asarray(cs.btype).reshape(-1)
-    f_probe = float(np.mean([_PRIM_FLOPS.get(int(t), 14.0) for t in btype])) * G
-    per_iter = B * (f_dense + C * _SLAB_FLOPS + 2.0 * f_probe
-                    + _SHADE_FLOPS)
-    return 100.0 * iters_per_sec * per_iter / _VPU_PEAK
+def _card() -> str:
+    """The card's name and power limit as ``nvidia-smi`` reports them
+    ("not available" where there is no such tool)."""
+    import subprocess
+    try:
+        out = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"],
+            capture_output=True, text=True, timeout=30, check=True)
+        return out.stdout.strip()
+    except (OSError, subprocess.SubprocessError):
+        return "not available"
 
 
 class _Results:
@@ -215,7 +138,7 @@ def _stage(res, name):
         t0 = time.perf_counter()
         try:
             fn()
-        except Exception as e:  # noqa: BLE001 — a bench stage must not kill the artifact
+        except Exception as e:  # noqa: BLE001 — recorded; main() exits 1
             msg = f"{type(e).__name__}: {e}"
             res.failures[name] = msg[:400]
         res.emit_partial(name, time.perf_counter() - t0)
@@ -223,6 +146,8 @@ def _stage(res, name):
 
 
 def main():
+    from wasm_pathtracer_tpu.runtime import compile_cache
+    compile_cache.enable()
     import jax
     import jax.numpy as jnp
     from wasm_pathtracer_tpu.config import RenderSettings, RenderType
@@ -230,7 +155,12 @@ def main():
     from wasm_pathtracer_tpu.models.camera import Camera, initial_camera
     from wasm_pathtracer_tpu.ops import bvh, integrator, trace, wavefront
 
-    on_tpu = jax.default_backend() != "cpu"
+    dev = jax.devices()[0]
+    device = {"platform": dev.platform, "kind": dev.device_kind,
+              "count": len(jax.devices())}
+    card = _card()
+    print(f"bench: device {device}, card {card}", file=sys.stderr,
+          flush=True)
     settings = RenderSettings(render_type=RenderType.NORMAL_NEE,
                               max_bounces=8)
     res = _Results()
@@ -246,83 +176,49 @@ def main():
     def _():
         shared["scene"] = scenes.museum()
 
-    # -- 1. museum headline (fused megakernel, regenerating wavefront) --
+    # -- 1. museum headline (scene kernel, regenerating wavefront) -----
     @_stage(res, "museum")
     def _():
         scene = shared["scene"]
-        prep = trace.prepare(scene, use_fused=on_tpu)
-        # queue/lane sweep on the v5e-class chip (r04): large queues
-        # amortize the drain tail, and SMALLER lane counts beat larger
-        # ones (cache pressure, not launch overhead — 8k/16k/32k/64k/
-        # 128k -> 5.39/5.50/5.30/5.23/4.95 M paths/s); peak at 16k
-        B = 16_384
-        pps, tpp, ips = _bench_queue(
+        prep = trace.prepare(scene)
+        pps, _, ips = _bench_queue(
             integrator.render_queue, prep, scene, settings,
-            initial_camera(0), 512, 512, S=2_621_440, B=B,
+            initial_camera(0), 512, 512, S=2_621_440, B=16_384,
             want_iters=True)
         res.headline = round(pps, 1)
-        extras["museum_sol_pct"] = round(_sol_model(scene, tpp, pps), 2)
-        # iteration-based accounting (PROFILE_r04.md): every outer-loop
-        # iteration executes one full-width trace AND one full-width
-        # shadow trace regardless of lane liveness, so hardware flops/s
-        # = B * iters/s * 2 * sum(prim flops).  This measures what the
-        # machine runs; the legacy museum_sol_pct charges only the
-        # tests a PATH consumed, so it additionally absorbs occupancy
-        # and bookkeeping losses (trace is ~32% of each iteration).
-        ptype = np.asarray(scene.ptype)
-        flops_iter = 2.0 * B * sum(_PRIM_FLOPS[int(t)] for t in ptype)
-        extras["museum_trace_sol_pct"] = round(
-            100.0 * ips * flops_iter / _VPU_PEAK, 2)
+        extras["museum_iters_per_sec"] = round(ips, 1)
 
     # -- 2. bunny-class mesh (~70k tris) through the flat wavefront ----
     @_stage(res, "mesh70k")
     def _():
         mesh = scenes.mesh_scene(scenes.surface_mesh(188))
-        prep_m = bvh.attach_clusters(trace.prepare(mesh, use_fused=on_tpu),
-                                     mesh)
+        prep_m = bvh.attach_clusters(trace.prepare(mesh), mesh)
         cam_m = Camera.create((0.0, 1.0, -6.0), 0.1, 0.0)
-        # flat-wavefront lane sweep (r04): 4k/8k/12k/16k/32k/64k ->
-        # 0.66/0.98/1.15/1.21/1.12/0.87 M paths/s; peak at 16k
-        pps, _, ips = _bench_queue(wavefront.render_queue_flat, prep_m,
-                                   mesh, settings, cam_m, 512, 512,
-                                   S=524_288, B=16_384, want_iters=True)
+        pps, _ = _bench_queue(wavefront.render_queue_flat, prep_m,
+                              mesh, settings, cam_m, 512, 512,
+                              S=524_288, B=16_384)
         extras["mesh70k_paths_per_sec"] = round(pps, 1)
-        extras["mesh70k_sol_pct"] = round(
-            _sol_model_flat(mesh, prep_m, 16_384, ips), 2)
 
     # -- 3. 100k-triangle cloud (scene id 5) ----------------------------
     @_stage(res, "cloud100k")
     def _():
         cloud = scenes.select_scene(5)
-        prep_c = bvh.attach_clusters(trace.prepare(cloud, use_fused=on_tpu),
-                                     cloud)
-        pps, _, ips = _bench_queue(wavefront.render_queue_flat, prep_c,
-                                   cloud, settings, initial_camera(5),
-                                   512, 512, S=524_288, B=16_384,
-                                   want_iters=True)
+        prep_c = bvh.attach_clusters(trace.prepare(cloud), cloud)
+        pps, _ = _bench_queue(wavefront.render_queue_flat, prep_c,
+                              cloud, settings, initial_camera(5),
+                              512, 512, S=524_288, B=16_384)
         extras["cloud100k_paths_per_sec"] = round(pps, 1)
-        extras["cloud100k_sol_pct"] = round(
-            _sol_model_flat(cloud, prep_c, 16_384, ips), 2)
 
-    # -- 3b. 300k-triangle cloud: beyond the VMEM table budget, the
-    # probe kernel streams per-lane tiles from HBM (the x8-scale
-    # high-poly workload slot, ``index.ts:213-222``) ------------------
+    # -- 3b. 300k-triangle cloud (the x8-scale high-poly workload slot,
+    # ``index.ts:213-222``) ------------------------------------------
     @_stage(res, "cloud300k")
     def _():
         big = scenes.cloud(300_000)
-        prep_big = bvh.attach_clusters(
-            trace.prepare(big, use_fused=on_tpu), big)
-        # HBM-streamed path prefers even narrower wavefronts (r04 sweep:
-        # 2k/4k/8k/16k/32k -> 0.55/0.77/0.83/0.69/0.48 M paths/s): each
-        # lane's tile DMA contends for VMEM staging, so fewer in-flight
-        # lanes stream better; peak at 8k
-        pps, _, ips = _bench_queue(wavefront.render_queue_flat, prep_big,
-                                   big, settings, initial_camera(5),
-                                   512, 512, S=262_144, B=8_192,
-                                   want_iters=True)
+        prep_big = bvh.attach_clusters(trace.prepare(big), big)
+        pps, _ = _bench_queue(wavefront.render_queue_flat, prep_big,
+                              big, settings, initial_camera(5),
+                              512, 512, S=262_144, B=8_192)
         extras["cloud300k_paths_per_sec"] = round(pps, 1)
-        extras["cloud300k_sol_pct"] = round(
-            _sol_model_flat(big, prep_big, 8_192, ips), 2)
 
     # -- 3c. photon emission: the reference's PNEE preprocessing at its
     # 300k-photon budget (``src/tracer.rs:103-123``; config.py
@@ -333,7 +229,7 @@ def main():
     def _():
         from wasm_pathtracer_tpu.ops import photon
         scene = shared["scene"]
-        prep = trace.prepare(scene, use_fused=on_tpu)
+        prep = trace.prepare(scene)
         lo, hi = photon.grid_bounds_for_scene(scene, settings)
 
         def fresh():
@@ -375,7 +271,7 @@ def main():
     def _():
         scene = shared["scene"]
         grid = shared["photon_grid"]
-        prep = trace.prepare(scene, use_fused=on_tpu)
+        prep = trace.prepare(scene)
         pnee = settings.replace(render_type=RenderType.PNEE)
         pps, _, _ = _bench_queue(
             integrator.render_queue, prep, scene, pnee,
@@ -384,7 +280,8 @@ def main():
         extras["museum_pnee_paths_per_sec"] = round(pps, 1)
 
     # -- 4. backward: grads of the scan-form museum render --------------
-    # (XLA dense path: Pallas is forward-only; bounce-checkpointed scan.)
+    # (XLA dense path: the scene kernel is forward-only;
+    # bounce-checkpointed scan.)
     # BASELINE.md: "backward grad rays/sec measured alongside forward".
     # Methodology: 262,144 rays/step (large enough that dispatch is
     # noise), 5 timed iterations, with and without per-bounce
@@ -401,7 +298,7 @@ def main():
         # scene/prep built here so a failure lands in the calling
         # stage's failure record (ADVICE r04)
         scene = shared["scene"]
-        prep_g = trace.prepare(scene)
+        prep_g = trace.prepare(scene, use_fused=False)
         gset = settings.replace(early_exit=False, checkpoint_bounces=remat)
         pix = jnp.arange(Rg, dtype=jnp.int32)
         px, py = pix % 512, (pix // 512) % 512
@@ -420,10 +317,8 @@ def main():
             lowered = grad_step.lower(scene.albedo, cam0, jnp.uint32(0))
             compiled = lowered.compile()
         except Exception as e:
-            # the no-remat variant can kill the COMPILE helper outright
-            # (observed: HTTP 500 from tpu_compile_helper while laying
-            # out the ~20 GB buffer assignment) — that too is the
-            # remat-tradeoff datum
+            # a compile failure of the no-remat variant is the
+            # remat-tradeoff datum too
             return None, float("nan"), f"{type(e).__name__}: {e}"[:300], \
                 "compile_failed"
         try:
@@ -463,7 +358,7 @@ def main():
         if rps_h is not None:
             extras["backward_grad_rays_per_sec_half_batch"] = round(rps_h, 1)
 
-    # -- 5. 1080p adaptive, single chip (config 5's 1-chip half) --------
+    # -- 5. 1080p adaptive, single device (config 5's 1-device half) ----
     @_stage(res, "adaptive_1080p")
     def _():
         from wasm_pathtracer_tpu.runtime.session import Session
@@ -486,7 +381,7 @@ def main():
     def _():
         from wasm_pathtracer_tpu.runtime.session import Session
         scene = shared["scene"]
-        prep = trace.prepare(scene, use_fused=on_tpu)
+        prep = trace.prepare(scene)
         pps_raw, _ = _bench_queue(
             integrator.render_queue, prep, scene, settings,
             initial_camera(0), 1920, 1080, S=2_097_152, B=16_384)
@@ -502,31 +397,20 @@ def main():
         extras["uniform_1080p_paths_per_sec"] = round(traced / dt, 1)
 
     # -- 6. backward WITHOUT remat: 8 bounces x 108 lights x 262k rays
-    # of residuals — expected to exceed the 16 GB chip.  LAST on
-    # purpose: a failure here (runtime OOM, or the compile helper
-    # dying on the ~20 GB buffer assignment) must not cost any other
-    # stage, and either failure mode is itself the remat-tradeoff
-    # datum (r03 lost the whole artifact to this exact stage).
+    # of residuals.  LAST on purpose: a failure here (compile or
+    # runtime) must not cost any other stage, and either failure mode
+    # is itself the remat-tradeoff datum.
     @_stage(res, "backward_noremat")
     def _():
         rps_nr, mem_nr, err, kind = _bench_backward(262_144, remat=False)
         if mem_nr == mem_nr:                # NaN is not strict JSON
             extras["backward_noremat_temp_mem_total_mb"] = round(mem_nr, 1)
         if rps_nr is None:
-            # honest failure taxonomy (r04 review): "compile_failed"
-            # means the tpu_compile_helper died on the unrolled
-            # 8-bounce backward graph (still the mode at 262k rays
-            # even after the IFT torus VJP cut total temps 8x — the
-            # death is graph-scale, not residual size),
-            # "runtime_failed" a device OOM during execution — either
-            # way the datum is "does not fit without remat at this
-            # batch", not literally a runtime OOM
+            # "compile_failed" or "runtime_failed": either way the datum
+            # is "does not fit without remat at this batch"
             extras["backward_noremat_failed"] = kind
             extras["backward_noremat_error"] = err
-            # the tradeoff still gets a measured point: no-remat DOES
-            # compile at 65k rays, where it is SLOWER than remat
-            # (saved-residual HBM traffic beats the recompute) —
-            # r05 measured 240k vs 292k grad rays/s
+            # the tradeoff still gets a measured point at 65k rays
             rps_sm, _, err2, _ = _bench_backward(65_536, remat=False)
             if rps_sm is not None:
                 extras["backward_noremat_rays_per_sec_65k"] = \
@@ -544,9 +428,12 @@ def main():
         "value": headline,
         "unit": "paths/s",
         "vs_baseline": round(headline / baseline, 2),
+        "device": device,
+        "card": card,
         "extras": extras,
     }))
+    return 1 if res.failures else 0
 
 
 if __name__ == "__main__":
-    main()
+    sys.exit(main())

@@ -11,13 +11,12 @@ that the sharded program scales structurally (no replicated work, no
 serialization) and they pin the artifact format.
 
 The workload is sized so one device's wall time is dominated by
-compute, not dispatch (512x512, 16k lanes/device by default — round 3
-used 128x128 / 1k lanes, small enough that partition overhead dwarfed
-the work and the artifact read as a scaling failure; see VERDICT r03
-weak #3).
+compute, not dispatch (512x512, 16k lanes/device by default; at
+128x128 / 1k lanes partition overhead dwarfs the work and the artifact
+reads as a scaling failure).
 
 Usage:
-    python examples/measure_scaling.py --virtual --out SCALING_r04.json
+    python examples/measure_scaling.py --virtual --out scaling.json
 """
 
 import argparse
@@ -69,7 +68,7 @@ def main():
                               "lanes_per_device": args.lanes,
                               "total_paths": int(W * H * args.spp)},
            # How to read the two efficiency columns (the artifact is
-           # self-interpreting on purpose — VERDICT r03 weak #3):
+           # self-interpreting on purpose):
            "interpretation": {
                "efficiency": (
                    "strong-scaling: per-chip throughput at n devices vs 1 "
@@ -99,11 +98,8 @@ def main():
                    "uses every core (intra-op) and n > nproc "
                    "oversubscribes the host — beyond nproc devices the "
                    "wall-time ratio measures scheduler/cache thrash, "
-                   "not sharding overhead (this host: %d cores).  "
-                   "Measured r04: the dense queue workload holds "
-                   "aggregate ~0.8 at 8 devices; the cluster workload "
-                   "(large per-device loop state) degrades to ~0.4 "
-                   "purely from cache pressure." % os.cpu_count()),
+                   "not sharding overhead (this host: %d cores)."
+                   % os.cpu_count()),
                "what_certifies_the_baseline_bar": (
                    "on this hardware the >85% claim rests on: (1) "
                    "program structure — pixel-partition DP, disjoint "
@@ -149,16 +145,13 @@ def main():
 
     out["workloads"]["cloud2k_flat"] = measure_scaling(run_flat, counts)
 
-    # 3. the r04 queue-vs-flat differential (VERDICT r05 ask #5):
-    # at 8 devices the queue held aggregate 0.82 while flat fell to
-    # 0.43 under identical host oversubscription.  Candidate cause:
-    # FIXED lanes-per-device vs 8x-smaller shards — every flat
-    # iteration costs ~full lane width regardless of live lanes (the
-    # (B, C) slab + (B, G) probes run dense), so when a shard only has
-    # a few paths per lane, the drain tail (full-width iterations
-    # retiring the last stragglers) stops amortizing.  The sweep below
-    # pins it: if smaller per-device wavefronts recover the aggregate,
-    # the differential is a lane-sizing artifact, not program overhead.
+    # 3. flat-wavefront lane sweep at 8 devices: every flat iteration
+    # costs ~full lane width regardless of live lanes (the (B, C) slab
+    # + (B, G) probes run dense), so when a shard only has a few paths
+    # per lane, the drain tail (full-width iterations retiring the last
+    # stragglers) stops amortizing.  If smaller per-device wavefronts
+    # recover the aggregate, a queue-vs-flat differential is a
+    # lane-sizing artifact, not program overhead.
     import time as _time
     from wasm_pathtracer_tpu.parallel.shard import make_ray_mesh
     n8 = min(8, n_dev)

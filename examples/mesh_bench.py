@@ -1,10 +1,10 @@
-"""Mesh-scale TPU measurement: parity + throughput for the cluster path.
+"""Mesh-scale measurement: throughput of the cluster path.
 
 BASELINE config 3 workload class: a bunny-scale surface mesh (>= 69k
 triangles, the reference's `bunny2.obj x8` slot) and the 100k-triangle
 procedural cloud (``src_ts/client/index.ts:213-226``).  Prints paths/s
-for the production render path (persistent wavefront + fused megakernel
-+ cluster probing).
+for the production render path (persistent wavefront + cluster probing,
+with the Pallas scene kernel on the dense remainder on a GPU).
 
 Usage: python examples/mesh_bench.py [n_subdiv]
 """
@@ -33,7 +33,7 @@ from wasm_pathtracer_tpu.models.scenes import mesh_scene, surface_mesh  # noqa: 
 
 def bench_scene(scene, label, S=262_144, B=32_768, iters=3, group=None,
                 forms=("lockstep", "flat")):
-    prep = trace.prepare(scene, use_fused=jax.default_backend() != "cpu")
+    prep = trace.prepare(scene)
     kw = {} if group is None else dict(group=group)
     prep = bvh.attach_clusters(prep, scene, **kw)
     n_tri = int(np.sum(np.asarray(scene.ptype) == 2))

@@ -1,15 +1,13 @@
-"""Attribute the museum backward (gradient) pass — the PROFILE_r04
-treatment for the VJP side (r04 VERDICT ask #3).
+"""Attribute the museum backward (gradient) pass.
 
 Measures, on the museum scan-form integrator (the bench's backward
 workload):
   - forward-only render time (same scan settings, no grad);
   - value_and_grad w.r.t. albedo only / albedo+camera / light rows;
   - remat (checkpoint_bounces) on vs off at the probe batch;
-  - batch sweep (the r04 half-batch inversion: 157k @ 131k vs
-    117k @ 262k rays/s).
+  - batch sweep in both directions (does grad rays/s fall with batch?).
 
-Prints one JSON line; paste the table into PROFILE_r05.md.
+Prints one JSON line.
 Usage: python examples/profile_backward.py [--rays 262144]
 """
 import argparse
@@ -119,8 +117,8 @@ def main():
               f"{res[name].get('rays_per_sec', '')!s:>12} rays/s",
               file=sys.stderr, flush=True)
 
-    # batch sweep — BOTH directions, so the "half-batch inversion"
-    # (r04 weak #2) can be attributed: if forward shows the same
+    # batch sweep — BOTH directions, so a rate that falls with batch
+    # can be attributed: if forward shows the same
     # negative slope, it is a working-set effect of the scan-form
     # renderer, not a backward pathology
     sweep, sweep_f = {}, {}

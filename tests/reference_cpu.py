@@ -4,7 +4,7 @@ This is the test oracle: a direct, scalar-minded NumPy translation of
 the *semantics* of the Rust tracer (``/root/reference/src/tracer.rs``,
 ``src/graphics/*``), consuming the same counter-based RNG streams as the
 JAX integrator (``wasm_pathtracer_tpu.utils.rng`` with ``xp=np``).  Per
-SURVEY §4, forward renders of the TPU framework must be allclose to this
+SURVEY §4, forward renders of the JAX framework must be allclose to this
 oracle; discrete decisions (light picks, RR, branch choices) are derived
 from identical uniforms so they coincide except at float borderline
 cases.

@@ -58,6 +58,23 @@ def test_pick_pixels_proportional_allocation():
     assert hot > 3 * per_pixel, f"hot pixel got {hot} samples"
 
 
+def test_pick_pixels_batch_times_area_past_int32():
+    """A session half of 256x512 pixels drawing 32k-sample batches:
+    batch * area exceeds 2^31 and must not overflow the allocation."""
+    W, H = 512, 512
+    acc = np.zeros((H, W, 3), np.float32)
+    acc[100, 300] = 30.0
+    buf = accum.AccumBuffer(acc=jnp.asarray(acc),
+                            count=jnp.ones((H, W), jnp.float32))
+    px, py, density, pos = adaptive.pick_pixels(
+        buf, 32768, jnp.uint32(5), bootstrap=False, x0=256, y0=0,
+        width=256, height=512)
+    px, py = np.asarray(px), np.asarray(py)
+    assert px.shape == (32768,)
+    assert ((px >= 256) & (px < 512)).all() and ((py >= 0) & (py < H)).all()
+    assert 0 <= int(pos) < 256 * 512
+
+
 def test_pick_pixels_bootstrap_uniform():
     buf = accum.AccumBuffer.create(8, 8)
     px, py, _, _ = adaptive.pick_pixels(buf, 6400, jnp.uint32(3),

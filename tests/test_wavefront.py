@@ -154,3 +154,50 @@ def test_flat_cost_counter_positive_and_sublinear():
     n_prims = 512 + 2
     # <= brute force per trace; a path has up to 2*(bounces) traces
     assert 0 < per_path < n_prims * 2 * 2
+
+
+def _material_mesh_scene(kind):
+    """A clustered triangle cloud whose triangles carry either one of
+    64 distinct materials or a texture (a textured floor square too)."""
+    r = np.random.default_rng(21)
+    b = SceneBuilder(background=(0.05, 0.05, 0.1))
+    if kind == "textured":
+        checker = np.zeros((8, 8, 3), np.float32)
+        checker[::2, ::2] = checker[1::2, 1::2] = 0.9
+        tex = b.add_texture(checker)
+        b.add_square((0.0, -2.5, 6.0), 8.0,
+                     Material.diffuse(0.5, 0.5, 0.5, texture_id=tex))
+    else:
+        b.add_plane((0.0, -3.0, 0.0), (0.0, 1.0, 0.0),
+                    Material.diffuse(0.8, 0.8, 0.8))
+    centers = r.uniform(-2.0, 2.0, size=(256, 1, 3))
+    tris = (centers + r.uniform(-0.35, 0.35, size=(256, 3, 3))
+            + np.array([0.0, 0.0, 6.0])).astype(np.float32)
+    for k, tri in enumerate(tris):
+        if kind == "textured":
+            mat = Material.diffuse(0.7, 0.4, 0.3, texture_id=tex)
+        else:
+            mat = Material.diffuse(*r.uniform(0.1, 0.9, 3))
+        b.add_triangle(tri[0], tri[1], tri[2], mat)
+    light = Material.emissive(10.0, 10.0, 10.0)
+    b.add_triangle((1.5, 6.0, 7.5), (1.5, 6.0, 4.5), (-1.5, 6.0, 4.5), light)
+    b.add_triangle((-1.5, 6.0, 7.5), (1.5, 6.0, 7.5), (-1.5, 6.0, 4.5), light)
+    return b.build()
+
+
+@pytest.mark.parametrize("kind", ["textured", "many_materials"])
+def test_flat_matches_queue_materials(kind):
+    """Shading gathers each hit's packed row, so textured meshes and
+    meshes with more than 32 materials take the same flat path and
+    match the lockstep queue."""
+    scene = _material_mesh_scene(kind)
+    if kind == "textured":
+        assert scene.textures.shape[0] == 1
+    else:
+        assert len(np.unique(np.asarray(scene.albedo), axis=0)) > 32
+    settings = RenderSettings(render_type=RenderType.NORMAL_NEE,
+                              max_bounces=4)
+    a1, c1, _, a2, c2, _ = _render_both(scene, settings, S=1024, B=128)
+    assert (c1 == c2).all()
+    np.testing.assert_allclose(a2, a1, rtol=2e-5, atol=2e-5)
+    assert a1.sum() > 0

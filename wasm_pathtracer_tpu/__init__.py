@@ -1,4 +1,4 @@
-"""wasm_pathtracer_tpu — a TPU-native differentiable path tracer.
+"""wasm_pathtracer_tpu — a differentiable path tracer in JAX.
 
 A from-scratch JAX/XLA/Pallas re-design of the capability set of
 ``sourcedennis/wasm-pathtracer`` (a Rust->WASM path tracer; see

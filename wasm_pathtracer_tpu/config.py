@@ -125,16 +125,14 @@ class RenderSettings:
     bvh_num_bins: int = 16
     # Collapse BVH2 into a 4-wide BVH (``src/graphics/bvh4.rs``); the
     # reference default is off (``src/graphics/scene.rs:60``), ours is on
-    # because 4-wide nodes vectorize on the VPU.
+    # because 4-wide nodes test four child boxes in one vector step.
     use_bvh4: bool = True
     # Below this many triangles, brute-force rays x primitives beats
-    # traversal on TPU (everything stays dense and fused).
+    # traversal (everything stays dense and fused).
     bvh_min_triangles: int = 512
 
     # --- Batching ---------------------------------------------------------
-    # Rays processed per wavefront batch.  Static shape; multiples of 1024
-    # keep the (8,128) f32 tile fully occupied.  32k measured best on
-    # v5e for the museum workload (527k paths/s).
+    # Rays processed per wavefront batch (a static shape).
     ray_batch_size: int = 32768
     # Persistent wavefront with path regeneration
     # (``integrator.render_queue``): lanes that finish a path immediately
@@ -145,11 +143,7 @@ class RenderSettings:
     use_regen: bool = True
     # Wavefront width for the regenerating loop; the queue per step is
     # ``ray_batch_size``, so occupancy stays high while the drain tail
-    # costs ~lanes/batch of a step.  r04 lane sweep on v5e: throughput
-    # peaks at 16k for both the museum fused queue (5.50M paths/s;
-    # 8k/32k/64k within -2/-4/-5%) and the flat mesh wavefront (1.21M);
-    # wider wavefronts LOSE to cache pressure (64k museum -5%, 64k mesh
-    # -28%).  HBM-streamed cluster tables (>131k prims) prefer 8k.
+    # costs ~lanes/batch of a step.
     # NOTE: the session driver additionally caps the effective lane
     # count at max(1024, ray_batch_size // 4) — a ONE-SIDED override:
     # an explicit regen_lanes SMALLER than that cap is always honored,

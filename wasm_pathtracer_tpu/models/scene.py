@@ -3,13 +3,13 @@
 The reference stores shapes as ``Vec<Rc<dyn Tracable>>`` — heap-boxed
 trait objects dispatched through vtables (``src/graphics/scene.rs:31-36``),
 with materials as per-shape enums (``src/graphics/material.rs:16-20``).
-None of that maps to a TPU.  Here a scene is a pytree of flat arrays:
+None of that batches.  Here a scene is a pytree of flat arrays:
 
 - one unified parameter table ``params (N, 9)`` + ``ptype (N,)`` so BVH
   leaves can intersect any shape by gathered row + type switch;
 - per-type dense views (``tri_*``, ``sph_*``, ...) for the brute-force
   rays x primitives path, where the whole intersection is one fused
-  VPU pass;
+  elementwise pass;
 - a material table (``albedo``, ``emission``, ``mat_kind``, ``mat_extra``)
   whose float leaves are the differentiable parameters of the renderer;
 - area lights as an index array into shapes, mirroring

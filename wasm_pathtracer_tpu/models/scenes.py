@@ -1,6 +1,6 @@
 """Built-in scene definitions.
 
-TPU-native re-creations of the reference's scene registry
+Array-form re-creations of the reference's scene registry
 (``src/scenes.rs`` + ``src/wasm_interface.rs:389-398``):
 
 - id 0: museum — ground plane, 27 white tori, 2x2-triangle emissive area

@@ -4,7 +4,7 @@ The reference's ``AdaptiveSamplingStrategy`` is a host-side work queue:
 when empty it runs an O(W*H*25) error pass, pushes ``ceil(1+32*err)``
 copies of every pixel, shuffles, and pops one pixel per ray
 (``src/graphics/sampling_strategy.rs:120-219``).  Queues don't jit; the
-TPU-native allocator computes the same per-pixel error field with two
+batched allocator computes the same per-pixel error field with two
 fused convolutions (``ops.filters``) and draws a *fixed-size batch* of
 pixels proportional to the target spp via stratified inverse-CDF
 sampling — the same allocation in expectation, with static shapes.
@@ -95,8 +95,10 @@ def pick_pixels(buf: accum.AccumBuffer, batch: int, seed,
         w = jnp.ceil(1.0 + density * spp_scale)
         flat = w.ravel()
         total = jnp.maximum(jnp.sum(flat), 1.0)
-        n_floor = jnp.clip(jnp.round(batch * hw / total).astype(jnp.int32),
-                           1, batch)
+        # batch * hw passes 2^31 at real sizes (32k x 256x512): take
+        # the product as a float, never as an int32 operand
+        n_floor = jnp.clip(
+            jnp.round(float(batch * hw) / total).astype(jnp.int32), 1, batch)
 
         excess = flat - 1.0
         cdf = jnp.cumsum(excess)

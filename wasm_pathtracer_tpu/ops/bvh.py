@@ -8,7 +8,7 @@ cache-aligned 4-wide BVH by dynamic programming on tree cuts
 recursive with SIMD 4-box tests (``src/graphics/scene.rs:292-342``,
 ``aabb.rs:252-300``).
 
-The TPU-native design keeps the *algorithms* (binned SAH, 2->4
+The array design keeps the *algorithms* (binned SAH, 2->4
 collapse, ordered near-to-far descent) but changes every layout
 decision:
 
@@ -432,7 +432,7 @@ def depth(bounds4, child4, ni=0) -> int:
     return best
 
 
-def attach_bvh(prep, scene, num_bins: int = 16, use_pallas: bool = False):
+def attach_bvh(prep, scene, num_bins: int = 16):
     """Build a BVH over the scene's triangles and attach it to the prep.
 
     The leaf order array maps leaf-contiguous triangle slots to global
@@ -464,7 +464,6 @@ def attach_bvh(prep, scene, num_bins: int = 16, use_pallas: bool = False):
         bvh_children=jnp.asarray(child4),
         bvh_prim_index=jnp.asarray(prim_index),
         bvh_tri_rows=jnp.asarray(tri_rows),
-        use_pallas=use_pallas,
     )
 
 
@@ -476,8 +475,8 @@ def attach_clusters(prep, scene, num_bins: int = 16,
     """Build the cluster-dense structure (``ops.cluster``) over the
     scene's finite primitives: a BVH build supplies the
     spatially-coherent leaf order, then contiguous runs become
-    fixed-size clusters.  This is the default mesh path on TPU (see
-    ops.cluster for why a classic BVH walk is not).
+    fixed-size clusters.  This is the default mesh path (see
+    ops.cluster for why it is not a classic BVH walk).
 
     Like the reference's generic ``ShapeRep`` BVH over every finite
     shape (``bvh.rs:84-103``), the structure accepts ANY finite
@@ -541,23 +540,7 @@ def attach_clusters(prep, scene, num_bins: int = 16,
                            group or cl.CLUSTER_SIZE)
     baked_lights = bool(light_sids.size and
                         np.isin(light_sids, prim_index).any())
-    # material palette (cluster.ClusterSet.pal_idx/pal_rep): group
-    # shapes by identical material rows so the flat wavefront can shade
-    # from kernel-emitted winner rows + a tiny palette select instead
-    # of a per-sid row gather (a measured ~+1.5 ms/iter scheduling
-    # cliff inside its kernel-bearing loop — PROFILE_r05.md)
-    mat = np.concatenate(
-        [np.asarray(scene.albedo, np.float32),
-         np.asarray(scene.emission, np.float32),
-         np.asarray(scene.mat_extra, np.float32),
-         np.asarray(scene.mat_kind)[:, None].astype(np.float32),
-         np.asarray(scene.tex_id)[:, None].astype(np.float32)], axis=1)
-    _, first, pal_idx = np.unique(mat, axis=0, return_index=True,
-                                  return_inverse=True)
-    cs = dataclasses.replace(
-        cs, has_baked_lights=baked_lights,
-        pal_idx=jnp.asarray(pal_idx.astype(np.int32)),
-        pal_rep=tuple(int(i) for i in first))
+    cs = dataclasses.replace(cs, has_baked_lights=baked_lights)
     empty = jnp.zeros((0,), jnp.int32)
     repl = {fam_attr[f]: kept_dense.get(fam_attr[f], empty)
             for f in families}

@@ -1,8 +1,10 @@
 """ctypes loader for the native C++ BVH builder (``csrc/bvh_builder.cpp``).
 
-Compiles the shared library on first use into the repo's build cache
-(``csrc/.build/``); raises on any failure so callers fall back to the
-NumPy builder (``ops.bvh.build``).
+Compiles the shared library from source on first use into
+``csrc/.build/`` (listed in ``.gitignore``; the library is never
+committed, since ``-march=native`` ties it to the host that built it);
+raises on any failure so callers fall back to the NumPy builder
+(``ops.bvh.build``).
 """
 
 from __future__ import annotations
@@ -32,10 +34,14 @@ def _load():
     if (not os.path.exists(lib)
             or os.path.getmtime(lib) < os.path.getmtime(src)):
         os.makedirs(build, exist_ok=True)
+        # build beside the target and rename into place, so concurrent
+        # first users never load a half-written library
+        tmp = f"{lib}.{os.getpid()}.tmp"
         subprocess.run(
             ["g++", "-O3", "-march=native", "-shared", "-fPIC",
-             "-o", lib, src],
+             "-o", tmp, src],
             check=True, capture_output=True)
+        os.replace(tmp, lib)
     L = ctypes.CDLL(lib)
     L.bvh_build.restype = ctypes.c_int64
     L.bvh_build.argtypes = [

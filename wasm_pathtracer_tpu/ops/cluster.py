@@ -1,25 +1,21 @@
-"""Cluster-dense traversal — the TPU-native acceleration structure for
-scenes with many finite primitives (any type, not just triangles).
+"""Cluster-dense traversal — the acceleration structure for scenes with
+many finite primitives (any type, not just triangles).
 
-Why not a classic BVH walk on TPU: the per-ray divergent loop is one
-scalar gather per node visit, and measured on a v5e the vmapped
-``while_loop`` traversal runs ~0.04 Mrays/s — two orders below the
-dense kernels, because the VPU has no per-lane gather and every node
-fetch serializes.  The reference's recursion (``scene.rs:218-342``)
-simply has no efficient analog at lane granularity.
-
-The TPU answer exploits what the hardware *is* good at: wide dense
-compute and block-granular memory moves.  Primitives are grouped into
+A vmapped per-ray BVH walk (``ops.traverse``) is a divergent
+``while_loop`` with one scalar gather per node visit; the reference's
+recursion (``scene.rs:218-342``) has no direct batched analog.  The
+cluster structure trades that for wide dense compute and
+block-granular memory moves.  Primitives are grouped into
 fixed-size **clusters** (contiguous runs of the BVH leaf order, so each
 cluster is spatially coherent — the BVH build quality still matters,
 it just moves into the data layout):
 
-1. rays x clusters slab test — one dense (R, C) VPU pass (the
+1. rays x clusters slab test — one dense (R, C) pass (the
    descendant of ``AABBx4::hit``, scaled from 4 boxes to all of them);
 2. iterative nearest-cluster probing: each round, every active ray
    picks its nearest untested cluster, gathers that cluster's whole
    (G, 9) parameter block (one contiguous ~4.5 KB slice per ray — a
-   coarse, HBM-friendly gather), tests all G primitives densely with a
+   coarse, memory-friendly gather), tests all G primitives densely with a
    masked type switch, and retires the cluster;
 3. a ray stops when its nearest remaining cluster entry distance
    exceeds its best hit — the same ``max_dis`` pruning as the
@@ -77,18 +73,6 @@ class ClusterSet:
     # in the live dense remainder instead
     has_baked_lights: bool = _field(metadata=dict(static=True),
                                     default=True)
-    # material palette for gather-free shading in the flat wavefront:
-    # shapes with byte-identical material rows (albedo, emission,
-    # mat_extra, kind, tex) share one palette entry.  ``pal_idx`` maps
-    # every GLOBAL shape id to its entry; ``pal_rep`` (static) names one
-    # representative shape id per entry, from which the per-dispatch
-    # palette VALUES are re-gathered live (so material-value edits stay
-    # fresh; the entry STRUCTURE bakes at attach time, the same
-    # staleness contract as the geometry blocks above).  None/() when
-    # the ClusterSet was built without a scene (tests) — the flat loop
-    # then falls back to the per-sid row gather.
-    pal_idx: jax.Array | None = None
-    pal_rep: tuple = _field(metadata=dict(static=True), default=())
 
 
 def prim_aabbs(rows: np.ndarray, ptypes: np.ndarray):

@@ -312,7 +312,7 @@ def render_pixels_edgeaware(prep, scene, settings, camera: Camera,
     sample count -> inf).
     """
     assert prep.cluster is None and not prep.has_bvh and \
-        not prep.use_fused and not prep.use_pallas, \
+        not prep.use_fused, \
         "edge-aware gradients need the dense differentiable trace path"
     from wasm_pathtracer_tpu.ops import integrator
 
@@ -406,8 +406,7 @@ def _torus_segment_clearance(x0, nu, seg_len, c, big_r, small_r):
     negative penetration depth when it is blocked, 0 at grazing — so
     ``B = |min_s sdf| / s*`` vanishes at the silhouette from BOTH
     sides.  The nearest silhouette point is the SDF-projection of the
-    argmin point onto the torus surface, ``q - sdf(q)*grad(q)`` (same
-    machinery as :func:`ops.probe_pallas` uses for hit polish).  All
+    argmin point onto the torus surface, ``q - sdf(q)*grad(q)``.  All
     of this runs on the theta-DETACHED scene (the search needs no
     theta-derivatives; u-derivatives flow through the sample
     positions).

@@ -32,7 +32,7 @@ def _conv2d_same(img, kernel):
     y = lax.conv_general_dilated(
         x, w, window_strides=(1, 1), padding="SAME",
         feature_group_count=x.shape[1],
-        precision=lax.Precision.HIGHEST)  # keep f32 accum on TPU
+        precision=lax.Precision.HIGHEST)  # full f32, not TF32
     return jnp.moveaxis(y[0], 0, -1)
 
 

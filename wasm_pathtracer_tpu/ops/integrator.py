@@ -4,8 +4,8 @@ Re-design of ``RenderInstance::trace_original_color``
 (``src/tracer.rs:224-330``).  The reference traces one ray at a time
 through an unbounded ``loop`` with early returns; here an entire ray
 batch advances bounce-by-bounce under ``lax.scan`` with a static trip
-count and an ``alive`` mask — the TPU has no divergence, so terminated
-lanes simply stop contributing.
+count and an ``alive`` mask — terminated lanes simply stop
+contributing, so every bounce is one batched, branch-free step.
 
 The estimator math is identical (each step cites its source):
   - emissive hits add ``throughput * intensity`` only when NEE is off or
@@ -36,8 +36,8 @@ Two drivers share the per-bounce body ``_bounce_step``:
   so a lockstep loop wastes ~75% of its scene traces on dead lanes.
   Here a lane whose path terminates immediately splats its radiance
   into the frame accumulator and pulls the next sample off a pixel
-  queue, keeping every lane of the fused megakernel live until the
-  queue drains.  This is the TPU analog of the reference's per-ray
+  queue, keeping every lane of the scene trace live until the
+  queue drains.  This is the batched analog of the reference's per-ray
   early return (``tracer.rs:237``): the hardware never idles on a
   finished path.
 """
@@ -107,8 +107,7 @@ def _light_table(scene: SceneData):
     scene params (``scene.rs:47-66`` registers emissive shapes).
 
     Packed as ONE (L, 16) row — vertices 0:9, intensity 9:12, shape id
-    12 — so the per-lane NEE lookup is a single gather (a TPU gather
-    costs ~0.2-0.4 ms per *op* at 32k lanes regardless of width)."""
+    12 — so the per-lane NEE lookup is a single gather op."""
     lrows = scene.params[scene.light_shape]          # (L, 9)
     lint = scene.emission[scene.light_shape]         # (L, 3)
     lpack = jnp.concatenate(
@@ -117,20 +116,10 @@ def _light_table(scene: SceneData):
     return lpack, max(scene.num_lights, 1)
 
 
-def _light_table_cols(scene: SceneData):
-    """:func:`_light_table` split into (L,) columns — the flat
-    wavefront's form (2-D row gathers cost ~+1.5 ms/iter inside its
-    kernel-bearing loop body; 1-D column gathers are ~free there —
-    see ``trace.pack_hit_cols``).  Bit-identical values."""
-    lpack, n_lights = _light_table(scene)
-    return tuple(lpack[:, k] for k in range(lpack.shape[1])), n_lights
-
-
 def _shade_core(prep: tr.ScenePrep, scene: SceneData,
                 settings: RenderSettings, light_tab, photon_grid,
                 o, d, throughput, color, alive, hdb, absorb,
-                slot0, ray_id, seed, t, sid, hit, packed_rows=None,
-                hit_row=None):
+                slot0, ray_id, seed, t, sid, hit, packed_rows=None):
     """Everything :func:`_bounce_step` does AFTER the scene trace,
     except resolving the NEE occlusion query.
 
@@ -167,20 +156,7 @@ def _shade_core(prep: tr.ScenePrep, scene: SceneData,
     # value so no inf/NaN ever enters a masked lane (masked NaNs
     # poison gradients through the 0 * NaN VJP of jnp.where)
     t_safe = jnp.where(hit, t, 1.0)
-    if hit_row is not None:
-        # gather-free entry: the caller (the flat wavefront) supplies
-        # the winner's hit row, emitted by its probe kernels — a
-        # per-sid row gather inside that loop is a measured ~+1.5
-        # ms/iter scheduling cliff (PROFILE_r05.md).  A tuple/list is
-        # the COLUMN form (24 (R,) arrays — the fast carry layout);
-        # an array is a (R, 24) packed row.
-        if isinstance(hit_row, (tuple, list)):
-            info = tr.hit_info_from_cols(scene, o, d, t_safe, hit_row)
-        else:
-            info = tr.hit_info_from_row(scene, o, d, t_safe, hit_row)
-    else:
-        info = tr.hit_info(scene, o, d, t_safe, sid_c,
-                           packed=packed_rows)
+    info = tr.hit_info(scene, o, d, t_safe, sid_c, packed=packed_rows)
 
     # Beer-Lambert absorption through the current medium
     # (restored refract capability; no-op when absorb == 0)
@@ -271,11 +247,7 @@ def _shade_core(prep: tr.ScenePrep, scene: SceneData,
                               n_lights - 1)
             light_chance = jnp.full((R,), 1.0 / n_lights, jnp.float32)
 
-        if isinstance(lpack, tuple):
-            # column form: per-column 1-D gathers (see _light_table_cols)
-            lrow = jnp.stack([c[lid] for c in lpack], axis=1)
-        else:
-            lrow = lpack[lid]                     # (R, 16) — ONE gather
+        lrow = lpack[lid]                         # (R, 16) — ONE gather
         lv = lrow[:, 0:9]
         intensity = lrow[:, 9:12]
         lsid_g = lrow[:, 12].astype(jnp.int32)
@@ -555,10 +527,8 @@ def render_queue(prep, scene, settings: RenderSettings, camera: Camera,
     # in-loop regen avoids the full-queue gather: claimed slots are the
     # contiguous range [issued, issued + n), so ONE dynamic slice pulls
     # the next B entries and a rank-indexed pick from that B-block
-    # distributes them (gather cost is per-index — 0.27 ms/iter from
-    # the 2.6M table vs 0.18 slice+rank at B=16k, measured r05; the
-    # queue gather was the single largest regen-bookkeeping term).
-    # Padding rows carry the HW drop sentinel and are never claimed.
+    # distributes them.  Padding rows carry the HW drop sentinel and
+    # are never claimed.
     pixq_pad = jnp.concatenate([pix_queue, jnp.full((B,), HW, jnp.int32)])
 
     def gen_contig(issued, ranks):
@@ -579,20 +549,18 @@ def render_queue(prep, scene, settings: RenderSettings, camera: Camera,
         absorb=jnp.zeros((B, 3), jnp.float32),
         bounce=jnp.zeros((B,), jnp.uint32),
         pid=pid0, rid=rid0,
-        # deferred frame records: a TPU scatter-add costs ~4 ms at 32k
-        # updates nearly independent of update count, so splatting every
-        # bounce iteration would dominate the loop.  Finished paths
-        # record into a lane-local ring via a dense one-hot write; ONE
-        # scatter after the loop folds the records into the frame.
+        # deferred frame records: finished paths record into a
+        # lane-local ring via a dense one-hot write, and ONE scatter
+        # after the loop folds the records into the frame (no scatter
+        # inside the loop body).
         ring_col=jnp.zeros((K, B, 3), jnp.float32),
         ring_pid=jnp.full((K, B), HW, jnp.int32),   # HW = drop sentinel
         k_lane=jnp.zeros((B,), jnp.int32),
         # per-lane int32 cost: exact (a scalar f32 accumulator rounds
         # past 2^24); callers reduce host-side in int64
         cost=jnp.zeros((B,), jnp.int32),
-        # outer-loop iteration count: the SOL model and the profiling
-        # harness need hardware iterations, not paths (a full-width
-        # trace runs every iteration regardless of lane liveness)
+        # outer-loop iteration count (a full-width trace runs every
+        # iteration regardless of lane liveness)
         it=jnp.int32(0),
     )
 

@@ -2,11 +2,11 @@
 
 The reference dispatches ``Tracable::trace`` through vtables, one ray at
 a time (``src/graphics/ray.rs:91-121``).  Here each primitive family is
-a dense rays-x-primitives VPU kernel over SoA arrays: all distances for
-a (R,) ray batch against (P,) primitives come out as one (R, P) tensor
-with ``inf`` marking misses.  No branches — every reference early-return
-becomes a ``jnp.where`` mask, so XLA fuses the whole scene test into a
-handful of vector loops.
+a dense rays-x-primitives elementwise kernel over SoA arrays: all
+distances for a (R,) ray batch against (P,) primitives come out as one
+(R, P) tensor with ``inf`` marking misses.  No branches — every
+reference early-return becomes a ``jnp.where`` mask, so XLA fuses the
+whole scene test into a handful of vector loops.
 
 Semantics match the reference per-primitive code exactly (cited on each
 function), including the t <= 0 rejection and the triangle half-space
@@ -41,10 +41,11 @@ def _nonzero(x, eps=1e-30):
 def _dot_rp(a, b):
     """(R,3) x (P,3) -> (R,P) dot products.
 
-    Written as broadcast multiply + sum, NOT einsum/matmul: on TPU a
-    K=3 matmul would route to the MXU at bf16 input precision, which is
-    catastrophic for intersection tests (hit distances off by 1e-2).
-    The broadcast form stays on the VPU in full f32 and fuses.
+    Written as broadcast multiply + sum, NOT einsum/matmul: on a GPU a
+    float32 K=3 matmul may run on the tensor cores in TF32 (about three
+    decimal digits), which is catastrophic for intersection tests (hit
+    distances off by ~1e-3 relative).  The broadcast form stays in full
+    f32 elementwise arithmetic and fuses.
     """
     return jnp.sum(a[:, None, :] * b[None, :, :], axis=-1)
 
@@ -149,11 +150,11 @@ def rays_vs_squares(o, d, center, size):
 #
 # The reference solves the quartic in f64 because f32 root-finding is
 # catastrophically cancellous ("Grainy tori are ugly", torus.rs:74).
-# TPUs have no f64.  The TPU-native answer is *sphere tracing*: the torus
-# has an exact signed distance function
+# f64 is slow or absent on accelerators, so the answer here is *sphere
+# tracing*: the torus has an exact signed distance function
 #     sdf(p) = |(|p.xz| - R, p.y)| - r
 # so we march the ray with a fixed-trip-count loop (branch-free, pure
-# VPU) and polish the hit with a few Newton steps on the quartic.  The
+# f32) and polish the hit with a few Newton steps on the quartic.  The
 # reference itself left a vestigial `Marchable` SDF trait
 # (``src/graphics/ray.rs:127-136``) — this realizes it.
 

@@ -4,7 +4,7 @@ The reference implements PNEE with an adaptive octree whose every node
 carries an empirical PDF over light ids, sampled with stochastic
 per-axis neighbor selection and an exact trilinearly-interpolated pdf
 (``src/data/photon_tree.rs``, adapted from Mikolajewski's thesis).  A
-pointer-chasing octree cannot vectorize; the TPU-native equivalent is a
+pointer-chasing octree cannot vectorize; the batched equivalent is a
 **flat dense grid** of per-cell light histograms:
 
 - photon deposition is one ``scatter-add`` over the whole photon batch

@@ -1,210 +1,147 @@
-"""Pallas TPU megakernel: fused whole-scene nearest-hit.
+"""Pallas (Triton) scene kernel: fused whole-scene nearest hit and
+any-hit shadow query.
 
 The XLA dense path (``ops.trace.trace_scene``) tests each primitive
-family in its own rays x primitives kernel; at production batch sizes
-the (R, P) and (R, P, 3) intermediates spill to HBM and the trace
-becomes bandwidth-bound.  But a whole *scene* of the reference's scale
-is tiny — the museum's 146 shapes are ~5 KB of parameters
-(``src/scenes.rs:15-68``) — so the TPU-native answer is a single fused
-kernel: the entire shape table lives in VMEM, each grid step streams
-one ray block through *every* primitive family, and nothing (R, P)
-ever touches HBM.  This is the megakernel the north star names
-("wavefront megakernel ... vectorized SoA kernels over ray batches",
-``BASELINE.json:5``).
+family as its own rays x primitives kernel, and the torus SDF march is
+a ``fori_loop`` over (R, T) carries: every march step is one more
+kernel launch that sends its carries through device memory, twice per
+bounce (nearest hit and shadow query).  A scene of the reference's
+scale is tiny — the museum's 146 shapes are a few KB of parameters
+(``src/scenes.rs:15-68``) — so one kernel can keep the rays, the march
+state and the running (t, code) minimum in registers for the whole
+scene.
 
-Layout: primitives on **sublanes**, rays on **lanes** — the transpose
-of ``ops.traverse_pallas``.  Family sizes here are O(10-100), so
-padding them to the 128-lane dimension would waste 5-30x; padding to
-the 8-sublane dimension wastes at most 8/n.  Rays take the 128-lane
-axis at ``RAY_BLOCK`` per grid step.
+Layout: one program serves a power-of-two block of ``RAY_BLOCK`` rays
+held as 1-D vectors.  Each primitive family is a loop over its
+primitives with scalar parameter loads from one flat table (the
+family's rows at a static offset), so register pressure does not grow
+with the family size and nothing is padded.  Per primitive the block
+folds its candidate into a running ``(t, code)`` with
+``code = family << SLOT_BITS | slot``; a strict ``<`` keeps the first
+primitive on ties, the same order as the XLA path's per-family argmin.
+The wrapper decodes codes back to global shape ids with one R-sized
+gather per family.
+
+Tori first slab-test the whole block and skip the march (a
+``lax.cond`` on the block) when no ray of the block can reach the torus
+before its current bound.  The march never ends before the slab entry,
+so the skip changes no result.
 
 Each family's intersection math is the componentwise transcription of
-``ops.intersect`` (which cites the reference per primitive); misses
-are ``inf``.  Per family a (sublane-axis) min + iota-select finds the
-nearest slot; families fold into a running (t, code) where
-``code = family << SLOT_BITS | slot``.  The wrapper decodes codes back
-to global shape ids with one R-sized XLA gather per family.
-
-Not differentiable (Pallas); gradient workloads keep the XLA path —
-``ScenePrep.use_fused`` is a static flag the session/bench set for
-forward rendering only, mirroring how ``RenderSettings.early_exit``
-gates the non-differentiable while_loop.
-
-Zero padding is safe for every family: zeroed rows produce t == 0 or
-an empty slab interval, both masked (spheres additionally require
-radius > 0, checked in-kernel).
+``ops.intersect`` (which cites the reference per primitive); misses are
+``inf``.  The kernel is forward-only (Pallas has no VJP here), so
+``ScenePrep.use_fused`` is a static forward-only flag and gradient
+workloads keep the XLA path.
 """
 
 from __future__ import annotations
 
-import functools
-
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plt
 
-RAY_BLOCK = 512
+RAY_BLOCK = 64
+NUM_WARPS = 2
 SLOT_BITS = 20
-# occlusion kernel: early-exit the torus march via while_loop once all
-# entries are frozen/converged (vs the fixed 24-step fori).  Measured
-# r05 on the museum queue (B=16k): while-march 5.23 M paths/s vs
-# fori 5.52 — the per-step scalar any() reduction stalls the VPU
-# pipeline more than the saved steps are worth on incoherent
-# (32 tori x 512 rays) blocks, where one grazing entry keeps the
-# block marching anyway.  Default off; kept for coherent workloads.
-OCC_EARLY_EXIT = False
 _SLOT_MASK = (1 << SLOT_BITS) - 1
-_BIG = 2 ** 30   # plain int: a jnp scalar would be a captured kernel constant
 _EPS_SLACK = 0.1 * 2e-4          # triangle.rs:44
 _TORUS_STEPS = 24                # ops.intersect._TORUS_STEPS
 _TORUS_NEWTON = 4                # ops.intersect._TORUS_NEWTON
 _TORUS_OMEGA = 1.6               # ops.intersect._TORUS_OMEGA
 _TORUS_TOL = 1e-4
 
-# family codes (order matches ops.trace's tie-break order)
+# family codes (order matches ops.trace's tie-break order) and the
+# parameter-row width each family reads from the shape table
 FAM_PLANE, FAM_SPHERE, FAM_TRI, FAM_TORUS, FAM_AARECT, FAM_SQUARE = range(6)
-
-
-def _pad8(x):
-    """Pad the leading (sublane) axis to a multiple of 8 with zeros."""
-    n = x.shape[0]
-    return jnp.pad(x, ((0, (-n) % 8), (0, 0)))
-
-
-def _nearest_in_family(t):
-    """(P, RB) candidate distances -> ((1, RB) t_min, (1, RB) slot).
-
-    Results stay (1, RB) lane rows end-to-end: Mosaic cannot shape-cast
-    a lane vector into sublane tiles, so the kernel never produces a
-    bare (RB,) value.
-    """
-    tmin = jnp.min(t, axis=0, keepdims=True)
-    io = jax.lax.broadcasted_iota(jnp.int32, t.shape, 0)
-    slot = jnp.min(jnp.where(t <= tmin, io, _BIG), axis=0, keepdims=True)
-    return tmin, slot
-
-
-def _fold(best_t, best_code, tmin, slot, fam):
-    better = tmin < best_t
-    code = jnp.int32(fam << SLOT_BITS) + slot
-    return (jnp.where(better, tmin, best_t),
-            jnp.where(better, code, best_code))
+_FAM_KEYS = ("plane", "sphere", "triangle", "torus", "aarect", "square")
+_FAM_WIDTH = (6, 4, 9, 5, 6, 4)
 
 
 def _nz(x, eps=1e-30):
     return jnp.where(jnp.abs(x) < eps, eps, x)
 
 
+def _any(mask):
+    """Block-wide any() (the Triton lowering has no reduce_or)."""
+    return jnp.max(jnp.where(mask, 1, 0)) > 0
+
+
 # ---------------------------------------------------------------------------
-# Per-family candidate-distance helpers, shared by the nearest-hit and
-# the any-hit (occlusion) kernels so the intersection math stays
-# single-source.  Each takes the family table ref plus the ray
-# component rows and returns the (P, RB) candidate matrix (inf = miss).
+# Per-primitive candidate distances.  Each takes the primitive's scalar
+# parameters ``p`` and the block's ray components and returns the (RB,)
+# candidate distances (inf = miss).  Shared by both kernels.
 # ---------------------------------------------------------------------------
 
-def _t_planes(pla_ref, o3, d3):
+def _t_plane(p, o3, d3):
     """Planes (plane.rs:80-99)."""
     ox, oy, oz = o3
     dx, dy, dz = d3
-    lx, ly, lz = pla_ref[:, 0], pla_ref[:, 1], pla_ref[:, 2]
-    nx, ny, nz_ = pla_ref[:, 3], pla_ref[:, 4], pla_ref[:, 5]
-    ndd = (nx[:, None] * dx[None, :] + ny[:, None] * dy[None, :]
-           + nz_[:, None] * dz[None, :])
-    ndo = (nx[:, None] * ox[None, :] + ny[:, None] * oy[None, :]
-           + nz_[:, None] * oz[None, :])
-    odist = nx * lx + ny * ly + nz_ * lz                # (P,)
-    t = (odist[:, None] - ndo) / _nz(ndd)
+    lx, ly, lz, nx, ny, nz_ = p
+    ndd = nx * dx + ny * dy + nz_ * dz
+    ndo = nx * ox + ny * oy + nz_ * oz
+    t = (nx * lx + ny * ly + nz_ * lz - ndo) / _nz(ndd)
     return jnp.where((t > 0.0) & (ndd != 0.0), t, jnp.inf)
 
 
-def _t_spheres(sph_ref, o3, d3):
+def _t_sphere(p, o3, d3):
     """Spheres (sphere.rs:104-131)."""
     ox, oy, oz = o3
     dx, dy, dz = d3
-    cx, cy, cz = sph_ref[:, 0], sph_ref[:, 1], sph_ref[:, 2]
-    rad = sph_ref[:, 3]
-    ocx = ox[None, :] - cx[:, None]
-    ocy = oy[None, :] - cy[:, None]
-    ocz = oz[None, :] - cz[:, None]
-    b = 2.0 * (ocx * dx[None, :] + ocy * dy[None, :]
-               + ocz * dz[None, :])
-    c = ocx * ocx + ocy * ocy + ocz * ocz - (rad * rad)[:, None]
+    cx, cy, cz, rad = p
+    ocx, ocy, ocz = ox - cx, oy - cy, oz - cz
+    b = 2.0 * (ocx * dx + ocy * dy + ocz * dz)
+    c = ocx * ocx + ocy * ocy + ocz * ocz - rad * rad
     disc = b * b - 4.0 * c
     sq = jnp.sqrt(jnp.where(disc > 0.0, disc, 1.0))
     sq = jnp.where(disc > 0.0, sq, 0.0)
     t0 = (-b + sq) * 0.5
     t1 = (-b - sq) * 0.5
-    tn = jnp.minimum(t0, t1)
-    tf = jnp.maximum(t0, t1)
-    t = jnp.where(tn > 0.0, tn, tf)
-    ok = (disc >= 0.0) & (t > 0.0) & (rad[:, None] > 0.0)
-    return jnp.where(ok, t, jnp.inf)
+    t = jnp.where(jnp.minimum(t0, t1) > 0.0, jnp.minimum(t0, t1),
+                  jnp.maximum(t0, t1))
+    return jnp.where((disc >= 0.0) & (t > 0.0), t, jnp.inf)
 
 
-def _t_tris(tri_ref, o3, d3):
+def _t_tri(p, o3, d3):
     """Triangles (triangle.rs:159-191)."""
     ox, oy, oz = o3
     dx, dy, dz = d3
-    v0x, v0y, v0z = tri_ref[:, 0], tri_ref[:, 1], tri_ref[:, 2]
-    v1x, v1y, v1z = tri_ref[:, 3], tri_ref[:, 4], tri_ref[:, 5]
-    v2x, v2y, v2z = tri_ref[:, 6], tri_ref[:, 7], tri_ref[:, 8]
+    v0x, v0y, v0z, v1x, v1y, v1z, v2x, v2y, v2z = p
     e1x, e1y, e1z = v1x - v0x, v1y - v0y, v1z - v0z
     e2x, e2y, e2z = v2x - v0x, v2y - v0y, v2z - v0z
     nx = e1y * e2z - e1z * e2y
     ny = e1z * e2x - e1x * e2z
     nz_ = e1x * e2y - e1y * e2x
-    inv_len = jax.lax.rsqrt(
-        jnp.maximum(nx * nx + ny * ny + nz_ * nz_, 1e-30))
-    orig = nx * v0x + ny * v0y + nz_ * v0z              # (P,)
-    ndd = (nx[:, None] * dx[None, :] + ny[:, None] * dy[None, :]
-           + nz_[:, None] * dz[None, :])
-    ndd = _nz(ndd)
-    ndo = (nx[:, None] * ox[None, :] + ny[:, None] * oy[None, :]
-           + nz_[:, None] * oz[None, :])
-    t = (orig[:, None] - ndo) / ndd
-    px = ox[None, :] + dx[None, :] * t
-    py = oy[None, :] + dy[None, :] * t
-    pz = oz[None, :] + dz[None, :] * t
+    inv_len = jax.lax.rsqrt(jnp.maximum(nx * nx + ny * ny + nz_ * nz_,
+                                        1e-30))
+    ndd = nx * dx + ny * dy + nz_ * dz
+    ndo = nx * ox + ny * oy + nz_ * oz
+    t = (nx * v0x + ny * v0y + nz_ * v0z - ndo) / _nz(ndd)
+    px, py, pz = ox + dx * t, oy + dy * t, oz + dz * t
 
     def left_of(ax, ay, az, ex, ey, ez):
-        wx = px - ax[:, None]
-        wy = py - ay[:, None]
-        wz = pz - az[:, None]
-        sx = ey[:, None] * wz - ez[:, None] * wy
-        sy = ez[:, None] * wx - ex[:, None] * wz
-        sz = ex[:, None] * wy - ey[:, None] * wx
-        s = sx * nx[:, None] + sy * ny[:, None] + sz * nz_[:, None]
-        return s * inv_len[:, None] + _EPS_SLACK >= 0.0
+        wx, wy, wz = px - ax, py - ay, pz - az
+        s = ((ey * wz - ez * wy) * nx + (ez * wx - ex * wz) * ny
+             + (ex * wy - ey * wx) * nz_)
+        return s * inv_len + _EPS_SLACK >= 0.0
 
     inside = left_of(v0x, v0y, v0z, e1x, e1y, e1z)
-    inside &= left_of(v1x, v1y, v1z,
-                      v2x - v1x, v2y - v1y, v2z - v1z)
-    inside &= left_of(v2x, v2y, v2z,
-                      v0x - v2x, v0y - v2y, v0z - v2z)
-    return jnp.where(inside & (t > 0.0), t, jnp.inf)
+    inside &= left_of(v1x, v1y, v1z, v2x - v1x, v2y - v1y, v2z - v1z)
+    inside &= left_of(v2x, v2y, v2z, v0x - v2x, v0y - v2y, v0z - v2z)
+    return jnp.where(inside & (t > 0.0) & (ndd != 0.0), t, jnp.inf)
 
 
-def _torus_setup(tor_ref, o3, d3):
-    """Torus bounding-slab + local-frame SDF closures (shared)."""
+def _torus_slab(p, o3, d3):
+    """Torus bounding-box interval: (t_in, t_out, hit_box, local o)."""
     ox, oy, oz = o3
     dx, dy, dz = d3
-    cx, cy, cz = tor_ref[:, 0], tor_ref[:, 1], tor_ref[:, 2]
-    bigr, smr = tor_ref[:, 3], tor_ref[:, 4]
-    lox = ox[None, :] - cx[:, None]                      # (P, RB)
-    loy = oy[None, :] - cy[:, None]
-    loz = oz[None, :] - cz[:, None]
-    extx = (bigr + smr)[:, None]
-    exty = smr[:, None]
-    idx_ = 1.0 / _nz(dx)[None, :]
-    idy_ = 1.0 / _nz(dy)[None, :]
-    idz_ = 1.0 / _nz(dz)[None, :]
-    ax1 = (-extx - lox) * idx_
-    ax2 = (extx - lox) * idx_
-    ay1 = (-exty - loy) * idy_
-    ay2 = (exty - loy) * idy_
-    az1 = (-extx - loz) * idz_
-    az2 = (extx - loz) * idz_
+    cx, cy, cz, bigr, smr = p
+    lox, loy, loz = ox - cx, oy - cy, oz - cz
+    ext_xz = bigr + smr
+    idx_, idy_, idz_ = 1.0 / _nz(dx), 1.0 / _nz(dy), 1.0 / _nz(dz)
+    ax1, ax2 = (-ext_xz - lox) * idx_, (ext_xz - lox) * idx_
+    ay1, ay2 = (-smr - loy) * idy_, (smr - loy) * idy_
+    az1, az2 = (-ext_xz - loz) * idz_, (ext_xz - loz) * idz_
     t_in = jnp.maximum(jnp.maximum(jnp.minimum(ax1, ax2),
                                    jnp.minimum(ay1, ay2)),
                        jnp.minimum(az1, az2))
@@ -212,110 +149,83 @@ def _torus_setup(tor_ref, o3, d3):
                                     jnp.maximum(ay1, ay2)),
                         jnp.maximum(az1, az2))
     hit_box = (t_in < t_out) & (t_out > 0.0)
+    return t_in, t_out, hit_box, (lox, loy, loz)
+
+
+def _torus_march(p, lo3, d3, t_in, t_out, hit_box):
+    """Over-relaxed SDF march + Newton polish, the componentwise form of
+    ``ops.intersect._tori_march_impl`` (same step counts and guards)."""
+    lox, loy, loz = lo3
+    dx, dy, dz = d3
+    bigr, smr = p[3], p[4]
 
     def sdf(t):
-        pxl = lox + dx[None, :] * t
-        pyl = loy + dy[None, :] * t
-        pzl = loz + dz[None, :] * t
-        qx = jnp.sqrt(jnp.maximum(pxl * pxl + pzl * pzl, 1e-24)) \
-            - bigr[:, None]
-        return jnp.sqrt(jnp.maximum(qx * qx + pyl * pyl, 1e-24)) \
-            - smr[:, None]
+        px, py, pz = lox + dx * t, loy + dy * t, loz + dz * t
+        qx = jnp.sqrt(jnp.maximum(px * px + pz * pz, 1e-24)) - bigr
+        return jnp.sqrt(jnp.maximum(qx * qx + py * py, 1e-24)) - smr
 
     def dsdf(t):
-        pxl = lox + dx[None, :] * t
-        pyl = loy + dy[None, :] * t
-        pzl = loz + dz[None, :] * t
-        rho = jnp.sqrt(jnp.maximum(pxl * pxl + pzl * pzl, 1e-24))
-        qx = rho - bigr[:, None]
-        ql = jnp.sqrt(jnp.maximum(qx * qx + pyl * pyl, 1e-24))
-        drho = (pxl * dx[None, :] + pzl * dz[None, :]) / rho
-        return (qx * drho + pyl * dy[None, :]) / ql
+        px, py, pz = lox + dx * t, loy + dy * t, loz + dz * t
+        rho = jnp.sqrt(jnp.maximum(px * px + pz * pz, 1e-24))
+        qx = rho - bigr
+        ql = jnp.sqrt(jnp.maximum(qx * qx + py * py, 1e-24))
+        drho = (px * dx + pz * dz) / rho
+        return (qx * drho + py * dy) / ql
 
-    return t_in, t_out, hit_box, sdf, dsdf
-
-
-def _t_tori(tor_ref, o3, d3, freeze_row=None, early_exit=False):
-    """Tori: over-relaxed SDF march + Newton polish, identical to
-    ``ops.intersect.rays_vs_tori`` (kept in lockstep so the fused and
-    XLA paths agree bit-for-bit up to fma rounding).
-
-    ``freeze_row``: optional (1, RB) bool — entries of rays whose
-    occlusion verdict is already proven; their march freezes at the
-    start.  Frozen entries report miss; non-frozen entries' results
-    are bit-identical (a frozen/converged entry never advances).
-
-    ``early_exit``: run the march as a ``lax.while_loop`` with a
-    scalar any() cond, exiting once every entry of the block is
-    frozen, converged, or out of its slab interval.  Only worth it
-    when many entries freeze early (the occlusion kernel); for the
-    NEAREST kernel the per-step any() reduction costs MORE than the
-    saved steps (measured r05 at 16k lanes: 0.68 vs 0.44 ms per
-    full-width trace), so it defaults off.
-    """
-    t_in, t_out, hit_box, sdf, dsdf = _torus_setup(tor_ref, o3, d3)
-
-    t = jnp.maximum(t_in, 1e-4)
-    sign0 = jnp.sign(sdf(t))
+    t_lo = jnp.maximum(t_in, 1e-4)
+    sign0 = jnp.sign(sdf(t_lo))
     sign0 = jnp.where(sign0 == 0.0, 1.0, sign0)
-    live = jnp.ones(t.shape, jnp.float32) if freeze_row is None else \
-        jnp.broadcast_to(1.0 - freeze_row.astype(jnp.float32), t.shape)
 
-    def can_step(t, dist):
-        return (dist > _TORUS_TOL) & (t < t_out) & (live > 0.0)
-
-    # Mosaic cannot legalize loops with vector-bool carries; the
-    # relaxation flag rides as f32 (1.0 / 0.0)
-    def march(t, dist, relaxed):
-        step = dist * (1.0 + (_TORUS_OMEGA - 1.0) * relaxed)
-        t2_ = t + jnp.where(can_step(t, dist), step, 0.0)
+    # the relaxation flag rides as f32 (1.0 / 0.0) to keep the loop
+    # carries plain float vectors
+    def march(_, st):
+        t, dist, relaxed = st
+        step = dist * jnp.where(relaxed > 0.5, _TORUS_OMEGA, 1.0)
+        t2_ = t + jnp.where((dist > _TORUS_TOL) & (t < t_out), step, 0.0)
         d2 = sign0 * sdf(t2_)
         accept = (step <= _TORUS_TOL) | (d2 + dist >= step)
-        return (jnp.where(accept, t2_, t),
-                jnp.where(accept, d2, dist),
-                accept.astype(jnp.float32))
+        return (jnp.where(accept, t2_, t), jnp.where(accept, d2, dist),
+                jnp.where(accept, 1.0, 0.0))
 
-    init = (t, sign0 * sdf(t), jnp.ones(t.shape, jnp.float32))
-    if early_exit:
-        def march_cond(st):
-            it, t, dist, _ = st
-            return (it < _TORUS_STEPS) & jnp.any(can_step(t, dist))
-
-        _, t, _, _ = jax.lax.while_loop(
-            march_cond,
-            lambda st: (st[0] + 1,) + march(*st[1:]),
-            (jnp.int32(0),) + init)
-    else:
-        t, _, _ = jax.lax.fori_loop(
-            0, _TORUS_STEPS, lambda _, st: march(*st), init)
+    t, _, _ = jax.lax.fori_loop(
+        0, _TORUS_STEPS, march,
+        (t_lo, sign0 * sdf(t_lo), jnp.ones_like(t_lo)))
 
     def newton(_, t):
         f = sign0 * sdf(t)
         fp = sign0 * dsdf(t)
         fp = jnp.where(jnp.abs(fp) < 1e-6,
                        jnp.where(fp < 0, -1e-6, 1e-6), fp)
-        tn = jnp.clip(t - f / fp, jnp.maximum(t_in, 1e-4), t_out)
+        tn = jnp.clip(t - f / fp, t_lo, t_out)
         return jnp.where(jnp.abs(f) > 1e-6, tn, t)
 
     t = jax.lax.fori_loop(0, _TORUS_NEWTON, newton, t)
-    ok = hit_box & (jnp.abs(sdf(t)) <= 10.0 * _TORUS_TOL) \
-        & (t > 0.0) & (t <= t_out + _TORUS_TOL) & (live > 0.0)
+    ok = hit_box & (jnp.abs(sdf(t)) <= 10.0 * _TORUS_TOL) & (t > 0.0) \
+        & (t <= t_out + _TORUS_TOL)
     return jnp.where(ok, t, jnp.inf)
 
 
-def _t_aarects(aar_ref, o3, d3):
+def _t_torus(p, o3, d3, bound):
+    """Tori (torus.rs:61-126 via the SDF march).  ``bound`` is the
+    block's per-ray distance past which no candidate matters: when no
+    ray enters the torus box before it, the march is skipped."""
+    t_in, t_out, hit_box, lo3 = _torus_slab(p, o3, d3)
+    need = hit_box & (t_in <= bound)
+    return jax.lax.cond(
+        _any(need),
+        lambda: _torus_march(p, lo3, d3, t_in, t_out, hit_box),
+        lambda: jnp.full(t_in.shape, jnp.inf, jnp.float32))
+
+
+def _t_aarect(p, o3, d3):
     """AARects (aa_rect.rs:142-174)."""
     ox, oy, oz = o3
     dx, dy, dz = d3
-    idx_ = 1.0 / _nz(dx)[None, :]
-    idy_ = 1.0 / _nz(dy)[None, :]
-    idz_ = 1.0 / _nz(dz)[None, :]
-    ax1 = (aar_ref[:, 0][:, None] - ox[None, :]) * idx_
-    ay1 = (aar_ref[:, 1][:, None] - oy[None, :]) * idy_
-    az1 = (aar_ref[:, 2][:, None] - oz[None, :]) * idz_
-    ax2 = (aar_ref[:, 3][:, None] - ox[None, :]) * idx_
-    ay2 = (aar_ref[:, 4][:, None] - oy[None, :]) * idy_
-    az2 = (aar_ref[:, 5][:, None] - oz[None, :]) * idz_
+    x0, y0, z0, x1, y1, z1 = p
+    idx_, idy_, idz_ = 1.0 / _nz(dx), 1.0 / _nz(dy), 1.0 / _nz(dz)
+    ax1, ax2 = (x0 - ox) * idx_, (x1 - ox) * idx_
+    ay1, ay2 = (y0 - oy) * idy_, (y1 - oy) * idy_
+    az1, az2 = (z0 - oz) * idz_, (z1 - oz) * idz_
     tmin = jnp.maximum(jnp.maximum(jnp.minimum(ax1, ax2),
                                    jnp.minimum(ay1, ay2)),
                        jnp.minimum(az1, az2))
@@ -326,310 +236,227 @@ def _t_aarects(aar_ref, o3, d3):
     return jnp.where((tmin < tmax) & (t > 0.0), t, jnp.inf)
 
 
-def _t_squares(sqr_ref, o3, d3):
+def _t_square(p, o3, d3):
     """Squares (square.rs:56-99)."""
     ox, oy, oz = o3
     dx, dy, dz = d3
-    scx, scy, scz = sqr_ref[:, 0], sqr_ref[:, 1], sqr_ref[:, 2]
-    size = sqr_ref[:, 3]
-    ndd = _nz(dy)[None, :]
-    t = (scy[:, None] - oy[None, :]) / ndd
-    pxq = ox[None, :] + dx[None, :] * t
-    pzq = oz[None, :] + dz[None, :] * t
-    dx_ = jnp.abs(pxq - scx[:, None])
-    dz_ = jnp.abs(pzq - scz[:, None])
-    inside = (2.0 * dx_ < size[:, None]) & (2.0 * dz_ < size[:, None])
-    return jnp.where(inside & (t > 0.0) & (dy[None, :] != 0.0),
-                     t, jnp.inf)
+    scx, scy, scz, size = p
+    t = (scy - oy) / _nz(dy)
+    inside = (2.0 * jnp.abs(ox + dx * t - scx) < size) \
+        & (2.0 * jnp.abs(oz + dz * t - scz) < size)
+    return jnp.where(inside & (t > 0.0) & (dy != 0.0), t, jnp.inf)
 
 
-_FAMS = ((FAM_PLANE, _t_planes), (FAM_SPHERE, _t_spheres),
-         (FAM_TRI, _t_tris), (FAM_TORUS, _t_tori),
-         (FAM_AARECT, _t_aarects), (FAM_SQUARE, _t_squares))
+_T_FNS = (_t_plane, _t_sphere, _t_tri, None, _t_aarect, _t_square)
 
 
-def _make_kernel(n_plane, n_sphere, n_tri, n_torus, n_aarect, n_square):
-    """Kernel factory; the n_* are static family sizes (pre-padding)."""
-    ns = (n_plane, n_sphere, n_tri, n_torus, n_aarect, n_square)
+def _family_loop(tab_ref, layout, o3, d3, carry, fold, bound_of):
+    """Fold every primitive of every present family into ``carry``.
 
-    def kernel(pla_ref, sph_ref, tri_ref, tor_ref, aar_ref, sqr_ref,
-               o_ref, d_ref, t_ref, code_ref):
-        o3 = (o_ref[0, :], o_ref[1, :], o_ref[2, :])      # (RB,) each
-        d3 = (d_ref[0, :], d_ref[1, :], d_ref[2, :])
-        rb = o3[0].shape[0]
-        refs = (pla_ref, sph_ref, tri_ref, tor_ref, aar_ref, sqr_ref)
-
-        best_t = jnp.full((1, rb), jnp.inf, jnp.float32)
-        best_code = jnp.full((1, rb), -1, jnp.int32)
-        for n, ref, (fam, t_fn) in zip(ns, refs, _FAMS):
-            if n:
-                t = t_fn(ref, o3, d3)
-                best_t, best_code = _fold(best_t, best_code,
-                                          *_nearest_in_family(t), fam)
-
-        # Mosaic requires >=8 sublanes per output block; replicate the
-        # (1, RB) result rows 8x (the wrapper reads row 0).  The extra
-        # write volume is ~2 KB/block — noise next to the compute.
-        t_ref[...] = jnp.broadcast_to(best_t, t_ref.shape)
-        code_ref[...] = jnp.broadcast_to(best_code, code_ref.shape)
-
-    return kernel
-
-
-def _make_occ_kernel(n_plane, n_sphere, n_tri, n_torus, n_aarect,
-                     n_square):
-    """Any-hit (occlusion-predicate) kernel factory.
-
-    The reference keeps the shadow ray a DISTINCT, cheaper query than
-    the nearest-hit trace (``scene.rs:104-133``: light-exclusion +
-    distance-bounded early-out).  This kernel is that query's fused
-    form: no per-family argmin/slot select, no shape-id decode — just
-    two running minima (nearest non-excluded candidate, nearest
-    candidate of the excluded light shape), and the torus march —
-    ~80% of the museum kernel's flops — runs LAST with every entry of
-    an already-proven-occluded ray frozen, so the march's while_loop
-    early-exits once the block's undecided entries converge.
-
-    Verdict parity with the trace-based shadow (trace nearest, then
-    ``hit & t < dist & sid != light``): occluded iff the nearest
-    non-light candidate beats both the light's own nearest candidate
-    and the light distance.  The one deviation is an exact FP tie
-    t_non == t_exc (argmin order decides there); ties between disjoint
-    primitives at bit-equal distance do not occur in practice.
+    ``layout``: static ((fam, n, offset), ...) into the flat table.
+    ``fold(carry, t, code)`` merges one primitive's candidates;
+    ``bound_of(carry)`` is the per-ray distance the torus skip tests.
     """
-    ns = (n_plane, n_sphere, n_tri, n_torus, n_aarect, n_square)
+    for fam, n, off in layout:
+        width = _FAM_WIDTH[fam]
 
-    def kernel(pla_ref, sph_ref, tri_ref, tor_ref, aar_ref, sqr_ref,
-               o_ref, d_ref, dist_ref, excl_ref, occ_ref):
-        o3 = (o_ref[0, :], o_ref[1, :], o_ref[2, :])      # (RB,) each
-        d3 = (d_ref[0, :], d_ref[1, :], d_ref[2, :])
-        rb = o3[0].shape[0]
-        refs = (pla_ref, sph_ref, tri_ref, tor_ref, aar_ref, sqr_ref)
-        dist = dist_ref[0:1, :]                            # (1, RB) f32
-        excl = excl_ref[0:1, :]                            # (1, RB) i32
+        def body(j, carry, fam=fam, off=off, width=width):
+            base = off + j * width
+            p = tuple(tab_ref[base + k] for k in range(width))
+            if fam == FAM_TORUS:
+                t = _t_torus(p, o3, d3, bound_of(carry))
+            else:
+                t = _T_FNS[fam](p, o3, d3)
+            return fold(carry, t, (fam << SLOT_BITS) + j)
 
-        t_non = jnp.full((1, rb), jnp.inf, jnp.float32)
-        t_exc = jnp.full((1, rb), jnp.inf, jnp.float32)
+        carry = jax.lax.fori_loop(0, n, body, carry)
+    return carry
 
-        def fold(t, fam):
-            code = jax.lax.broadcasted_iota(jnp.int32, t.shape, 0) \
-                + jnp.int32(fam << SLOT_BITS)
-            is_exc = code == excl                          # broadcast row
-            tn = jnp.min(jnp.where(is_exc, jnp.inf, t), axis=0,
-                         keepdims=True)
-            te = jnp.min(jnp.where(is_exc, t, jnp.inf), axis=0,
-                         keepdims=True)
-            return jnp.minimum(t_non, tn), jnp.minimum(t_exc, te)
 
-        for n, ref, (fam, t_fn) in zip(ns, refs, _FAMS):
-            if n and fam != FAM_TORUS:
-                t_non, t_exc = fold(t_fn(ref, o3, d3), fam)
+def _make_nearest_kernel(layout):
+    def kernel(tab_ref, ray_ref, t_ref, code_ref):
+        o3 = (ray_ref[0, :], ray_ref[1, :], ray_ref[2, :])
+        d3 = (ray_ref[3, :], ray_ref[4, :], ray_ref[5, :])
+        init = (jnp.full(o3[0].shape, jnp.inf, jnp.float32),
+                jnp.full(o3[0].shape, -1, jnp.int32))
 
-        if n_torus:
-            # cheap families first: rays they already prove occluded
-            # freeze their whole torus march.  Only valid when the
-            # excluded light is NOT itself a torus (else its t_exc is
-            # still unknown) — per-ray guard on the excl family.
-            occ_pre = (t_non < dist) & (t_non < t_exc)
-            freeze = occ_pre & (
-                (excl >> SLOT_BITS) != jnp.int32(FAM_TORUS))
-            t = _t_tori(tor_ref, o3, d3, freeze_row=freeze,
-                        early_exit=OCC_EARLY_EXIT)
-            t_non, t_exc = fold(t, FAM_TORUS)
+        def fold(carry, t, code):
+            best_t, best_code = carry
+            better = t < best_t
+            return (jnp.where(better, t, best_t),
+                    jnp.where(better, code, best_code))
 
-        occ = (t_non < dist) & (t_non < t_exc)
-        occ_ref[...] = jnp.broadcast_to(occ.astype(jnp.float32),
-                                        occ_ref.shape)
+        best_t, best_code = _family_loop(tab_ref, layout, o3, d3, init,
+                                         fold, lambda c: c[0])
+        t_ref[...] = best_t
+        code_ref[...] = best_code
 
     return kernel
 
 
-def fused_occluded(tables, o, d, dist, excl_code):
-    """Occlusion predicate over the whole scene in one fused kernel.
+def _make_occluded_kernel(layout):
+    """Any-hit query: the reference keeps the shadow ray a distinct,
+    cheaper query than the nearest hit (``scene.rs:104-133``: the
+    sampled light shape does not occlude, and candidates past the light
+    do not matter).  Two running minima replace the argmin: the nearest
+    candidate that is not the excluded light shape, and the nearest
+    candidate of the excluded shape.  Occluded iff the first beats both
+    the second and the light distance — the verdict of the trace-based
+    ``hit & t < dist & sid != light`` except at an exact float tie
+    between the light and another shape."""
+    def kernel(tab_ref, ray_ref, excl_ref, occ_ref):
+        o3 = (ray_ref[0, :], ray_ref[1, :], ray_ref[2, :])
+        d3 = (ray_ref[3, :], ray_ref[4, :], ray_ref[5, :])
+        dist = ray_ref[6, :]
+        excl = excl_ref[...]
+        inf = jnp.full(dist.shape, jnp.inf, jnp.float32)
 
-    Args:
-      tables: :func:`build_tables` output.
-      o, d: (R, 3) shadow rays (d normalized toward the light point).
-      dist: (R,) distance to the light sample point.
-      excl_code: (R,) int32 ``fam << SLOT_BITS | slot`` code of the
-        sampled light shape (non-occluding), -1 for none.
+        def fold(carry, t, code):
+            t_non, t_exc = carry
+            is_exc = excl == code
+            return (jnp.minimum(t_non, jnp.where(is_exc, jnp.inf, t)),
+                    jnp.minimum(t_exc, jnp.where(is_exc, t, jnp.inf)))
 
-    Returns (R,) bool occlusion mask.
+        # a torus entered past the light or past the nearest occluder
+        # found so far cannot change the verdict
+        t_non, t_exc = _family_loop(
+            tab_ref, layout, o3, d3, (inf, inf), fold,
+            lambda c: jnp.minimum(c[0], dist))
+        occ_ref[...] = jnp.where((t_non < dist) & (t_non < t_exc), 1, 0)
+
+    return kernel
+
+
+def _pow2(n: int) -> int:
+    return 1 << max(n - 1, 0).bit_length()
+
+
+def build_table(prep, scene):
+    """Flat per-family parameter table and its static layout.
+
+    Runs inside jit (gathers from ``scene.params``).  Returns
+    ``(table (P,) f32, layout)`` with ``layout`` the static
+    ``((fam, n, offset), ...)`` of the families present; the table is
+    zero-padded to a power of two.
+    """
+    parts, layout, off = [], [], 0
+    for fam, key in enumerate(_FAM_KEYS):
+        idx = getattr(prep, f"idx_{key}")
+        n = idx.shape[0]
+        if n:
+            parts.append(scene.params[idx][:, :_FAM_WIDTH[fam]].reshape(-1))
+            layout.append((fam, n, off))
+            off += n * _FAM_WIDTH[fam]
+    table = jnp.concatenate(parts) if parts else jnp.zeros((0,), jnp.float32)
+    table = jnp.pad(table, (0, _pow2(max(off, 1)) - off))
+    return table, tuple(layout)
+
+
+def _ray_rows(o, d, extra=None):
+    """(R, 3) rays (+ optional (R,) row) -> (8, R') f32, R' a multiple
+    of RAY_BLOCK; padding rays point along +1 so no division meets 0."""
+    R = o.shape[0]
+    pad = (-R) % RAY_BLOCK
+    cols = [o, d] + ([extra[:, None]] if extra is not None else [])
+    rays = jnp.concatenate(cols, axis=1)
+    rays = jnp.pad(rays, ((0, pad), (0, 8 - rays.shape[1])))
+    rays = rays.at[R:, 3:6].set(1.0)
+    return rays.T
+
+
+def _call(name, kernel, table, rays, extra_in, out_dtype, interpret):
+    Rp = rays.shape[1]
+    n_out = len(out_dtype)
+    block = pl.BlockSpec((RAY_BLOCK,), lambda i: (i,))
+    outs = pl.pallas_call(
+        kernel,
+        grid=(Rp // RAY_BLOCK,),
+        in_specs=[pl.BlockSpec(table.shape, lambda i: (0,)),
+                  pl.BlockSpec((8, RAY_BLOCK), lambda i: (0, i))]
+        + [block] * len(extra_in),
+        out_specs=[block] * n_out,
+        out_shape=[jax.ShapeDtypeStruct((Rp,), dt) for dt in out_dtype],
+        backend="triton",
+        compiler_params=plt.CompilerParams(num_warps=NUM_WARPS,
+                                           num_stages=1),
+        interpret=interpret,
+        name=name,
+    )(table, rays, *extra_in)
+    return outs
+
+
+def fused_nearest(table, layout, o, d, interpret=False):
+    """Nearest hit over the whole scene in one kernel.
+
+    Returns (t (R,), code (R,)) with code == -1 on miss.
+    """
+    R = o.shape[0]
+    t, code = _call("scene_nearest", _make_nearest_kernel(layout), table,
+                    _ray_rows(o, d), (), (jnp.float32, jnp.int32),
+                    interpret)
+    return t[:R], code[:R]
+
+
+def fused_occluded(table, layout, o, d, dist, excl_code, interpret=False):
+    """Occlusion predicate over the whole scene in one kernel.
+
+    ``dist``: (R,) distance to the light point; ``excl_code``: (R,) the
+    sampled light shape's ``fam << SLOT_BITS | slot`` code, -1 for none.
+    Returns (R,) bool.
     """
     R = o.shape[0]
     pad = (-R) % RAY_BLOCK
-    o_p = jnp.pad(o, ((0, pad), (0, 0))).T          # (3, R')
-    d_p = jnp.pad(d, ((0, pad), (0, 0)), constant_values=1.0).T
-    dist_p = jnp.pad(dist, (0, pad))[None]          # pad 0 => unoccluded
-    excl_p = jnp.pad(excl_code, (0, pad), constant_values=-1)[None]
-    Rp = R + pad
+    excl = jnp.pad(excl_code, (0, pad), constant_values=-1)
+    # padding rays get dist 0: never occluded
+    (occ,) = _call("scene_occluded", _make_occluded_kernel(layout), table,
+                   _ray_rows(o, d, dist), (excl,), (jnp.int32,), interpret)
+    return occ[:R] > 0
 
-    ns = tuple(tables[k][0] for k in
-               ("plane", "sphere", "triangle", "torus", "aarect", "square"))
-    tabs = [tables[k][1] for k in
-            ("plane", "sphere", "triangle", "torus", "aarect", "square")]
-    kernel = _make_occ_kernel(*ns)
 
-    nb = Rp // RAY_BLOCK
-    occ = pl.pallas_call(
-        kernel,
-        grid=(nb,),
-        in_specs=[
-            *[pl.BlockSpec(tab.shape, lambda i: (0, 0),
-                           memory_space=pltpu.VMEM) for tab in tabs],
-            pl.BlockSpec((3, RAY_BLOCK), lambda i: (0, i),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((3, RAY_BLOCK), lambda i: (0, i),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, RAY_BLOCK), lambda i: (0, i),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, RAY_BLOCK), lambda i: (0, i),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_specs=pl.BlockSpec((8, RAY_BLOCK), lambda i: (i, 0),
-                               memory_space=pltpu.VMEM),
-        out_shape=jax.ShapeDtypeStruct((nb * 8, RAY_BLOCK), jnp.float32),
-    )(*tabs, o_p, d_p, dist_p, excl_p)
-    occ = occ.reshape(nb, 8, RAY_BLOCK)[:, 0, :].reshape(Rp)[:R]
-    return occ > 0.0
+def _total(prep):
+    return sum(getattr(prep, f"idx_{k}").shape[0] for k in _FAM_KEYS)
 
 
 def shape_codes(prep, n_shapes: int):
     """(N,) int32 map shape id -> ``fam << SLOT_BITS | slot`` kernel
-    code (-2 where the shape is in no family — cannot match any
-    candidate)."""
+    code (-2 where the shape is in no family — matches no candidate)."""
     code_of = jnp.full((n_shapes,), -2, jnp.int32)
-    for fam, idx in (
-            (FAM_PLANE, prep.idx_plane), (FAM_SPHERE, prep.idx_sphere),
-            (FAM_TRI, prep.idx_triangle), (FAM_TORUS, prep.idx_torus),
-            (FAM_AARECT, prep.idx_aarect),
-            (FAM_SQUARE, prep.idx_square)):
-        n = idx.shape[0]
-        if n:
+    for fam, key in enumerate(_FAM_KEYS):
+        idx = getattr(prep, f"idx_{key}")
+        if idx.shape[0]:
             code_of = code_of.at[idx].set(
-                jnp.int32(fam << SLOT_BITS)
-                + jnp.arange(n, dtype=jnp.int32))
+                (fam << SLOT_BITS) + jnp.arange(idx.shape[0], dtype=jnp.int32))
     return code_of
 
 
-def occluded_fused(prep, scene, o, d, dist, light_sid):
-    """Fused any-hit shadow query: the drop-in fast path for
-    ``ops.trace.shadow_ray`` (``scene.rs:104-133`` semantics — the
-    sampled light shape does not occlude).
-
-    Returns (occluded (R,) bool, cost (R,) int32).
-    """
-    tables = build_tables(prep, scene)
-    code_of = shape_codes(prep, scene.params.shape[0])
-    excl = code_of[jnp.maximum(light_sid, 0)]
-    excl = jnp.where(light_sid >= 0, excl, -1)
-    occ = fused_occluded(tables, o, d, dist, excl)
-    total = sum(getattr(prep, f"idx_{k}").shape[0] for k in
-                ("plane", "sphere", "triangle", "torus", "aarect",
-                 "square"))
-    cost = jnp.full((o.shape[0],), total, jnp.int32)
-    return occ, cost
-
-
-def fused_nearest(tables, o, d):
-    """Nearest hit over the whole scene in one fused kernel.
-
-    Args:
-      tables: dict family -> (n, (P8, K) f32 table) from
-        :func:`build_tables` (row-padded to 8; ``n`` the true count).
-      o, d: (R, 3) rays.
-
-    Returns (t (R,), fam (R,), slot (R,)) with fam == -1 on miss.
-    """
-    R = o.shape[0]
-    pad = (-R) % RAY_BLOCK
-    o_p = jnp.pad(o, ((0, pad), (0, 0))).T          # (3, R')
-    d_p = jnp.pad(d, ((0, pad), (0, 0)), constant_values=1.0).T
-    Rp = R + pad
-
-    ns = tuple(tables[k][0] for k in
-               ("plane", "sphere", "triangle", "torus", "aarect", "square"))
-    tabs = [tables[k][1] for k in
-            ("plane", "sphere", "triangle", "torus", "aarect", "square")]
-    kernel = _make_kernel(*ns)
-
-    nb = Rp // RAY_BLOCK
-    t, code = pl.pallas_call(
-        kernel,
-        grid=(nb,),
-        in_specs=[
-            *[pl.BlockSpec(tab.shape, lambda i: (0, 0),
-                           memory_space=pltpu.VMEM) for tab in tabs],
-            pl.BlockSpec((3, RAY_BLOCK), lambda i: (0, i),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((3, RAY_BLOCK), lambda i: (0, i),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_specs=[
-            pl.BlockSpec((8, RAY_BLOCK), lambda i: (i, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((8, RAY_BLOCK), lambda i: (i, 0),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_shape=[
-            jax.ShapeDtypeStruct((nb * 8, RAY_BLOCK), jnp.float32),
-            jax.ShapeDtypeStruct((nb * 8, RAY_BLOCK), jnp.int32),
-        ],
-    )(*tabs, o_p, d_p)
-    t = t.reshape(nb, 8, RAY_BLOCK)[:, 0, :].reshape(Rp)[:R]
-    code = code.reshape(nb, 8, RAY_BLOCK)[:, 0, :].reshape(Rp)[:R]
-    fam = jnp.where(code >= 0, code >> SLOT_BITS, -1)
-    slot = jnp.where(code >= 0, code & _SLOT_MASK, 0)
-    return t, fam, slot
-
-
-def build_tables(prep, scene):
-    """Gather per-family parameter tables from the unified shape table.
-
-    Runs inside jit (R-sized gathers); returns the dict consumed by
-    :func:`fused_nearest`.
-    """
-    P = scene.params
-
-    def tab(idx, k):
-        n = idx.shape[0]
-        rows = P[idx][:, :k] if n else jnp.zeros((8, k), jnp.float32)
-        return n, _pad8(rows)
-
-    return {
-        "plane": tab(prep.idx_plane, 6),
-        "sphere": tab(prep.idx_sphere, 4),
-        "triangle": tab(prep.idx_triangle, 9),
-        "torus": tab(prep.idx_torus, 5),
-        "aarect": tab(prep.idx_aarect, 6),
-        "square": tab(prep.idx_square, 4),
-    }
-
-
 def trace_scene_fused(prep, scene, o, d):
-    """Drop-in fused variant of ``ops.trace.trace_scene``.
+    """Kernel form of ``ops.trace.trace_scene`` over the dense families.
 
     Same return contract: (t, shape_id, hit_mask, cost) — cost is the
     per-ray primitive-test count (every family tests all its
     primitives, as in the dense path).
     """
-    tables = build_tables(prep, scene)
-    t, fam, slot = fused_nearest(tables, o, d)
-    R = o.shape[0]
-
-    sid = jnp.full((R,), -1, jnp.int32)
-    fam_idx = [
-        (FAM_PLANE, prep.idx_plane), (FAM_SPHERE, prep.idx_sphere),
-        (FAM_TRI, prep.idx_triangle), (FAM_TORUS, prep.idx_torus),
-        (FAM_AARECT, prep.idx_aarect), (FAM_SQUARE, prep.idx_square),
-    ]
-    total = 0
-    for f, idx in fam_idx:
-        n = idx.shape[0]
-        if n:
-            sid = jnp.where(fam == f, idx[jnp.clip(slot, 0, n - 1)], sid)
-            total += n
-
+    table, layout = build_table(prep, scene)
+    t, code = fused_nearest(table, layout, o, d, prep.interpret)
+    fam = jnp.where(code >= 0, code >> SLOT_BITS, -1)
+    slot = code & _SLOT_MASK
+    sid = jnp.full(t.shape, -1, jnp.int32)
+    for f, key in enumerate(_FAM_KEYS):
+        idx = getattr(prep, f"idx_{key}")
+        if idx.shape[0]:
+            sid = jnp.where(fam == f,
+                            idx[jnp.clip(slot, 0, idx.shape[0] - 1)], sid)
     hit = jnp.isfinite(t)
-    cost = jnp.full((R,), total, jnp.int32)
+    cost = jnp.full(t.shape, _total(prep), jnp.int32)
     return jnp.where(hit, t, jnp.inf), sid, hit, cost
+
+
+def occluded_fused(prep, scene, o, d, dist, light_sid):
+    """Kernel form of ``ops.trace.shadow_ray``'s occlusion query
+    (``scene.rs:104-133`` semantics — the sampled light shape does not
+    occlude).  Returns (occluded (R,) bool, cost (R,) int32)."""
+    table, layout = build_table(prep, scene)
+    code_of = shape_codes(prep, scene.params.shape[0])
+    excl = jnp.where(light_sid >= 0, code_of[jnp.maximum(light_sid, 0)], -1)
+    occ = fused_occluded(table, layout, o, d, dist, excl, prep.interpret)
+    return occ, jnp.full(occ.shape, _total(prep), jnp.int32)

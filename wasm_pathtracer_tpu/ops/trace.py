@@ -1,18 +1,23 @@
 """Scene tracing: nearest-hit, shadow rays, hit shading info.
 
 Replaces ``Scene::{trace, trace_simple, shadow_ray}``
-(``src/graphics/scene.rs:104-184``).  Two regimes:
+(``src/graphics/scene.rs:104-184``).  Three routes, chosen per scene by
+the static :class:`ScenePrep`:
 
-- **dense**: every primitive family is tested rays x primitives in one
-  fused VPU pass; results concatenate and a single argmin picks the
-  winner.  For large triangle counts the test runs as a ``lax.scan``
-  over fixed-size triangle chunks holding a running minimum, so memory
-  stays bounded while the compute remains dense (TPU-friendly: no
-  gathers, no divergence).
+- **dense**: every primitive family is tested rays x primitives;
+  results concatenate and a single argmin picks the winner.  For large
+  triangle counts the test runs as a ``lax.scan`` over fixed-size
+  triangle chunks holding a running minimum, so memory stays bounded
+  while the compute remains dense.  This is the differentiable path and
+  the plain reference the kernels are checked against.
+- **fused**: the dense families run through the Pallas scene kernel
+  (``ops.scene_pallas``), forward only.  :func:`prepare` turns it on
+  for the GPU backend.
 - **bvh**: triangles go through the flat-array BVH traversal
-  (``ops.traverse``); everything else stays dense.  Selected per scene
-  by the session (static decision).
+  (``ops.traverse``); everything else stays dense.
 
+A cluster structure (``ops.cluster``), when attached, covers the large
+finite families and merges its nearest hit after the dense/fused pass.
 The infinite-shape prefix is always dense, mirroring the reference's
 brute-force prefix (``scene.rs:162-184``).
 """
@@ -59,15 +64,14 @@ class ScenePrep:
     bvh_tri_rows: jax.Array | None = None    # (T, 9) f32 leaf-order verts
     # cluster-dense structure (ops.cluster) — the fast path for meshes
     cluster: object | None = None            # ClusterSet pytree
-    # route the triangle sweep through the streaming dense Pallas kernel
-    # (ops.traverse_pallas) instead of BVH traversal / XLA dense
-    use_pallas: bool = _field(metadata=dict(static=True), default=False)
-    # route the dense-family scene test through the fused Pallas
-    # megakernel (ops.scene_pallas) — forward-only (Pallas is not
-    # differentiable).  Composes with an attached cluster structure
-    # (small families fused in VMEM, clustered families probed after);
-    # ignored when a BVH is attached
+    # route the dense-family scene test through the Pallas scene kernel
+    # (ops.scene_pallas) — forward-only (the kernel has no VJP).
+    # Composes with an attached cluster structure (the kernel covers
+    # the dense remainder, the clusters merge after); ignored when a
+    # BVH is attached
     use_fused: bool = _field(metadata=dict(static=True), default=False)
+    # run that kernel in Pallas's interpreter (how the CPU tests reach it)
+    interpret: bool = _field(metadata=dict(static=True), default=False)
 
     @property
     def has_bvh(self) -> bool:
@@ -75,8 +79,25 @@ class ScenePrep:
 
 
 def prepare(scene: SceneData, tri_chunk: int = 2048,
-            use_pallas: bool = False, use_fused: bool = False) -> ScenePrep:
-    """Host-side split of the shape table into per-type index sets."""
+            use_fused: bool | None = None,
+            interpret: bool = False) -> ScenePrep:
+    """Host-side split of the shape table into per-type index sets, and
+    the platform decision for the forward trace.
+
+    ``use_fused=None`` decides once, here: the Pallas scene kernel on
+    the GPU backend, the XLA dense path everywhere else (on the CPU,
+    XLA is the plain reference).  ``interpret=True`` runs the kernel in
+    Pallas's interpreter, the only way to reach it without a GPU.
+    Gradient workloads need ``use_fused=False``
+    (``parallel.make_train_step`` clears it itself).  Nothing falls
+    back: a kernel that does not compile fails the trace.
+    """
+    gpu = jax.default_backend() == "gpu"
+    if use_fused is None:
+        use_fused = gpu or interpret
+    if use_fused and not (gpu or interpret):
+        raise ValueError("the Pallas scene kernel needs the GPU backend "
+                         "or interpret=True")
     ptype = np.asarray(scene.ptype)
 
     def idx(t):
@@ -90,8 +111,8 @@ def prepare(scene: SceneData, tri_chunk: int = 2048,
         idx_aarect=idx(PrimType.AARECT),
         idx_square=idx(PrimType.SQUARE),
         tri_chunk=tri_chunk,
-        use_pallas=use_pallas,
-        use_fused=use_fused,
+        use_fused=bool(use_fused),
+        interpret=bool(interpret),
     )
 
 
@@ -118,9 +139,8 @@ def trace_scene(prep: ScenePrep, scene: SceneData, o, d):
                   ("plane", "sphere", "torus", "aarect", "square"))
 
     if prep.use_fused and not prep.has_bvh:
-        # fused whole-scene Pallas megakernel over the dense families
-        # (forward-only fast path); clustered families merge below —
-        # the two fast paths compose instead of excluding each other
+        # whole-scene Pallas kernel over the dense families (forward
+        # only); clustered families merge below
         if n_dense + prep.idx_triangle.shape[0] > 0:
             from wasm_pathtracer_tpu.ops import scene_pallas
             best_t, best_id, _, cost = scene_pallas.trace_scene_fused(
@@ -169,21 +189,7 @@ def trace_scene(prep: ScenePrep, scene: SceneData, o, d):
 
     n_tri = prep.idx_triangle.shape[0]
     if n_tri:
-        if prep.use_pallas:
-            # dense streaming Pallas sweep (see ops.traverse_pallas)
-            from wasm_pathtracer_tpu.ops import traverse_pallas as tp
-            planes = tp.pad_tris(P[prep.idx_triangle][:, :9])
-            o_p, d_p = tp.pad_rays(o, d)
-            t, slot = tp.dense_tri_nearest(planes, o_p, d_p)
-            t, slot = t[:R], slot[:R]
-            hit_tri = jnp.isfinite(t)
-            sid = prep.idx_triangle[jnp.clip(slot, 0, n_tri - 1)]
-            sid = jnp.where(hit_tri, sid, -1)
-            better = t < best_t
-            best_t = jnp.where(better, t, best_t)
-            best_id = jnp.where(better, sid, best_id)
-            cost += n_tri
-        elif prep.has_bvh:
+        if prep.has_bvh:
             from wasm_pathtracer_tpu.ops import traverse
             t, sid, visits = traverse.trace_bvh4(
                 prep.bvh_bounds, prep.bvh_children, prep.bvh_prim_index,
@@ -269,8 +275,7 @@ def shadow_ray(prep: ScenePrep, scene: SceneData, p, point_on_light,
     cheaper query with light exclusion and distance-bounded early-out
     (``scene.rs:104-133``, ``max_dis`` pruning ``scene.rs:262-288``);
     the any-hit kernel mirrors that: no argmin/shape-id reduction, and
-    the torus march (the dominant term) early-exits once a ray's
-    occlusion is proven by a cheaper family.
+    a torus march is skipped where it cannot change the verdict.
     """
     to_l = point_on_light - p
     dir_len = vm.length(to_l)
@@ -295,10 +300,8 @@ def pack_hit_rows(scene: SceneData):
     emission 12:15, mat_extra 15:20, ptype 20, mat_kind 21, tex_id 22,
     pad 23.
 
-    A TPU gather costs ~0.36 ms per *op* at 32k lanes nearly
-    independent of row width (measured v5e: one (B,16) row gather
-    0.41 ms vs five narrow gathers 1.00 ms), so :func:`hit_info` reads
-    ONE packed row instead of seven separate tables.  Int columns are
+    :func:`hit_info` reads ONE packed row per ray instead of seven
+    separate tables (one gather op instead of seven).  Int columns are
     exact in f32 (values << 2^24).  Differentiable leaves (albedo /
     emission / mat_extra) flow through concat->gather->slice, so
     gradients are unchanged.
@@ -316,25 +319,6 @@ def pack_hit_rows(scene: SceneData):
          jnp.zeros((scene.params.shape[0], 1), f32)], axis=1)
 
 
-def pack_hit_cols(scene: SceneData):
-    """:func:`pack_hit_rows` split into a tuple of 24 contiguous (N,)
-    columns, for gather-hostile loop bodies.
-
-    Measured r05 on the flat wavefront (v5e, B=16k, mesh70k): inside
-    the 3-Pallas-kernel ``while`` body, ONE 2-D row gather costs
-    ~+1.5 ms/iter (XLA reschedules the whole body around it — ~19
-    extra async carry copies appear), while 1-D column gathers cost a
-    flat ~0.35 ms/iter *independent of count* (24 columns time the
-    same as 3).  The same row gather in the museum queue loop is
-    cheap, so :func:`pack_hit_rows` remains the default; loop drivers
-    whose bodies carry Pallas kernels pass this tuple instead.  Values
-    are bit-identical (same arrays, restacked per lane after the
-    per-column gathers).
-    """
-    rows = pack_hit_rows(scene)
-    return tuple(rows[:, k] for k in range(rows.shape[1]))
-
-
 def hit_info(scene: SceneData, o, d, t, sid, packed=None):
     """Normals, entering flags and material rows for hits.
 
@@ -343,78 +327,13 @@ def hit_info(scene: SceneData, o, d, t, sid, packed=None):
     per ray, not per primitive).
 
     ``packed`` is :func:`pack_hit_rows`'s output (built here when not
-    supplied — loop callers pass it in to keep it loop-invariant), or
-    :func:`pack_hit_cols`'s column tuple (gather-hostile loops; see
-    its docstring for the measured why).
+    supplied — loop callers pass it in to keep it loop-invariant).
 
     Returns dict with n, is_entering, kind, albedo, emission, extra.
     """
     if packed is None:
         packed = pack_hit_rows(scene)
-    if isinstance(packed, tuple):
-        # per-column 1-D gathers, restacked: bit-identical to the row
-        # gather, ~4x cheaper inside kernel-bearing while bodies
-        prow = jnp.stack([c[sid] for c in packed], axis=1)
-    else:
-        prow = packed[sid]                         # (R, 24) — ONE gather
-    return hit_info_from_row(scene, o, d, t, prow)
-
-
-def hit_info_from_cols(scene: SceneData, o, d, t, cols):
-    """:func:`hit_info` on ALREADY-RESOLVED hit-row COLUMNS — the
-    gather-free shade entry for the flat wavefront, whose probe kernels
-    emit the winner's row directly (``probe_pallas._reduce_min_row``).
-
-    ``cols`` is a sequence of 24 (R,) arrays in :func:`pack_hit_rows`
-    column order.  Column form is load-bearing, not cosmetic: inside
-    the flat loop's kernel-bearing while body, a (B, 16) lane-major
-    winner-row CARRY measured ~+1.0 ms/iter (the minor dim pads 16 ->
-    128 lanes and XLA triples the body's async carry copies), while
-    (B,) scalar carries — the ``t_best`` pattern — are free
-    (PROFILE_r05.md).  No texture support here (the flat gather-free
-    path gates on texture-free scenes).
-    """
-    r3 = lambda a, b, c: jnp.stack([cols[a], cols[b], cols[c]], axis=1)
-
-    n_pl, e_pl = isx.plane_normal(d, r3(3, 4, 5))
-    n_sp, e_sp = isx.sphere_normal(o, d, t, r3(0, 1, 2), cols[3])
-    n_tr, e_tr = isx.triangle_normal(d, r3(0, 1, 2), r3(3, 4, 5),
-                                     r3(6, 7, 8))
-    n_to, e_to = isx.torus_normal(o, d, t, r3(0, 1, 2), cols[3], cols[4])
-    n_aa, e_aa = isx.aarect_normal(o, d, t, r3(0, 1, 2), r3(3, 4, 5))
-    n_sq, e_sq = isx.square_normal(d)
-    pt = cols[20].astype(jnp.int32)
-
-    def sel3(vals):
-        out = vals[0]
-        for k, v in enumerate(vals[1:], start=1):
-            out = jnp.where((pt == k)[..., None], v, out)
-        return out
-
-    n = sel3([n_pl, n_sp, n_tr, n_to, n_aa, n_sq])
-    ent = jnp.select(
-        [pt == int(k) for k in (PrimType.PLANE, PrimType.SPHERE,
-                                PrimType.TRIANGLE, PrimType.TORUS,
-                                PrimType.AARECT, PrimType.SQUARE)],
-        [e_pl, e_sp, e_tr, e_to, e_aa, e_sq], default=True)
-
-    return dict(
-        n=n,
-        is_entering=ent,
-        kind=cols[21].astype(jnp.int32),
-        albedo=r3(9, 10, 11),
-        emission=r3(12, 13, 14),
-        extra=jnp.stack([cols[15], cols[16], cols[17], cols[18],
-                         cols[19]], axis=1),
-    )
-
-
-def hit_info_from_row(scene: SceneData, o, d, t, prow):
-    """:func:`hit_info` on an ALREADY-RESOLVED (R, 24) hit row in
-    :func:`pack_hit_rows` layout — the gather-free shade entry for the
-    flat wavefront, whose probe kernels emit the winner's row directly
-    (``probe_pallas._reduce_min_row``; a per-sid row gather inside its
-    kernel-bearing loop body costs ~+1.5 ms/iter, PROFILE_r05.md)."""
+    prow = packed[sid]                             # (R, 24) — ONE gather
     rows = prow[:, 0:9]
     pt = prow[:, 20].astype(jnp.int32)             # (R,)
 

@@ -13,9 +13,8 @@ over directly.
 Node-visit counting is preserved: the loop returns visits per ray, the
 reference's built-in cost metric (``scene.rs:137-144``).
 
-A Pallas kernel with the same node layout lives in
-``ops.traverse_pallas`` for the hot path; this module is the portable
-reference implementation and the autodiff path.
+Sessions trace meshes through the cluster structure
+(``ops.cluster``); this walk is the BVH route of ``trace.trace_scene``.
 """
 
 from __future__ import annotations
@@ -72,14 +71,16 @@ def _leaf_intersect(tri_rows, o, d, first, count, t_best, slot_best):
 
 def _tri_one(o, d, v0, v1, v2):
     """Single ray-triangle test (``triangle.rs:159-191``)."""
+    # vm.dot sums, not jnp.dot: under vmap a float32 dot may become a
+    # matrix product that a GPU runs in TF32
     n = jnp.cross(v1 - v0, v2 - v0)
-    n_dot_d = jnp.dot(n, d)
-    t = (jnp.dot(n, v0) - jnp.dot(n, o)) / n_dot_d
-    nn = n * jax.lax.rsqrt(jnp.maximum(jnp.dot(n, n), 1e-30))
+    n_dot_d = vm.dot(n, d)
+    t = (vm.dot(n, v0) - vm.dot(n, o)) / n_dot_d
+    nn = n * jax.lax.rsqrt(jnp.maximum(vm.dot(n, n), 1e-30))
     p = o + d * t
 
     def left_of(a, b):
-        return jnp.dot(nn, jnp.cross(b - a, p - a)) + 0.1 * isx.EPSILON >= 0.0
+        return vm.dot(nn, jnp.cross(b - a, p - a)) + 0.1 * isx.EPSILON >= 0.0
 
     inside = left_of(v0, v1) & left_of(v1, v2) & left_of(v2, v0)
     ok = (n_dot_d != 0.0) & (t > 0.0) & inside

@@ -15,10 +15,10 @@ applied one level deeper (the reference's analog is the per-ray early
 lane carries a tiny state machine:
 
   SCAN   start a trace: one dense pass over the non-clustered families
-         (``trace_scene`` with the cluster detached — the fused Pallas
-         megakernel when enabled) plus a rays x cluster-AABB slab test
-         whose per-cluster entry distances become the lane's carried
-         candidate row;
+         (``trace_scene`` with the cluster detached — the Pallas scene
+         kernel when the prep enables it) plus a rays x cluster-AABB
+         slab test whose per-cluster entry distances become the lane's
+         carried candidate row;
   PROBE  up to two clusters per iteration, in ascending (entry, id)
          order (ties to the lowest id — the same order as the lockstep
          retire loop): each candidate's (G, 9) block is gathered and
@@ -28,8 +28,8 @@ lane carries a tiny state machine:
          nearest remaining entry exceeds its running best — the
          reference's ``max_dis`` pruning (``scene.rs:262-288``).  Two
          rounds per slab pass because most traces finish within two
-         probes (measured ~1.5 on mesh70k), so the (B, C) slab —
-         the widest op in the loop — runs ~once per trace;
+         probes, so the (B, C) slab — the widest op in the loop — runs
+         ~once per trace;
   SHADE  the estimator step (:func:`ops.integrator._shade_core` — the
          exact code the lockstep drivers run), which may emit a
          deferred NEE shadow query: the lane then traces the shadow
@@ -45,29 +45,21 @@ is one dense (lanes x G) block test at full occupancy.
 Because the visit order is ascending ``(entry, id)``, the entire
 "already visited" state is a TWO-SCALAR LEX CURSOR per lane:
 ``(skip_e, skip_c)`` — the last visited (entry, id).  Each iteration
-recomputes the slab entries (0.55 ms at 32k lanes x 550 clusters on a
-v5e), masks everything lex-<= the cursor, and takes the lex-min.  Two
-earlier designs were measured and rejected: a sorted top-k shortlist
-(``lax.top_k`` costs 7.9 ms/iteration and needs a rescan protocol to
-stay exact) and a carried (lanes, C) entry matrix with argmin-retire
-(exact, but carries 72 MB through the loop and pays a (lanes, C)
-retire write every iteration).
+recomputes the slab entries, masks everything lex-<= the cursor, and
+takes the lex-min.  Two earlier designs were rejected: a sorted top-k
+shortlist (``lax.top_k`` per iteration, plus a rescan protocol to stay
+exact) and a carried (lanes, C) entry matrix with argmin-retire (exact,
+but it carries a lanes x C matrix through the loop and pays a
+(lanes, C) retire write every iteration).
 
-Two more v5e-measured costs shape the loop:
-
-- The per-lane block gather+test runs as a Pallas kernel with the whole
-  cluster table VMEM-resident (``ops.probe_pallas``, 1.0 ms/round at
-  32k lanes vs 3.5 ms for XLA's HBM-materializing ``jnp.take``) when
-  the table fits and ``prep.use_fused`` allows Pallas.
-- Frame accumulation is DEFERRED: a TPU scatter-add costs ~4 ms at 32k
-  updates nearly independent of the update count, so splatting every
-  iteration would dominate the loop.  Finished paths instead record
-  (pixel, color) into a lane-local ring buffer via a dense one-hot
-  write (~0.1 ms), and ONE scatter at the end of the dispatch folds
-  all records into the frame.  Ring capacity K = ceil(S/B) + slack;
-  a lane that fills its ring stops claiming new paths, and since all
-  lanes capped implies B*K >= S paths issued, no queue slot can ever
-  be stranded.
+The per-lane block gather+test is plain XLA: a ``jnp.take`` of each
+lane's (G, 9) cluster block feeding ``ops.cluster._block_test``.  Frame
+accumulation is DEFERRED: finished paths record (pixel, color) into a
+lane-local ring buffer via a dense one-hot write, and ONE scatter at
+the end of the dispatch folds all records into the frame.  Ring
+capacity K = ceil(S/B) + slack; a lane that fills its ring stops
+claiming new paths, and since all lanes capped implies B*K >= S paths
+issued, no queue slot can ever be stranded.
 
 Exactness: argmin-retire visits clusters in ascending
 ``(entry_distance, cluster_id)`` order — identical to the lockstep
@@ -81,28 +73,6 @@ Shadow rays resolve nearest-hit semantics identical to
 one extra *pruning* bound: clusters entirely beyond the light distance
 cannot change the verdict and are skipped, so the probe count (the
 cost metric) can undercount the lockstep path's — never the verdict.
-
-r05 kernel regime (VMEM-resident tables): the SCAN is folded into the
-select kernel (``probe_pallas.select_scan`` — a standalone scan over
-the usually-tiny dense remainder cost ~0.3 ms/iter of pure dispatch)
-and both probe rounds run as ONE stateless kernel
-(``probe_pallas.probe_pair_raw``) whose raw per-round reductions are
-masked in XLA — stateless because a kernel VMEM input that depends on
-the same kernel's previous output through the loop carry costs
-~1 ms/iter of staging (measured r05; see PROFILE_r05.md).  The
-HBM-streamed and XLA regimes keep the three-step form.
-
-r05b: shading is GATHER-FREE on the VMEM-kernel path.  The probe
-kernels reduce the winning slot's full table row in-kernel (params,
-ptype, material-palette id — ``probe_pallas._reduce_min_row``), the
-loop carries it as 11 scalar (B,) columns, and shade reconstructs its
-inputs via a static where-chain over the material palette
-(``ClusterSet.pal_idx``/``pal_rep``).  The form is dictated by a
-measured cliff taxonomy of this loop body (PROFILE_r05.md r05b): a
-per-sid row gather costs ~+1.5 ms/iter, a (B, 16) lane-major carry
-~+1.0, while (B,) carries and where-chains are free.  Radiance is
-bit-identical across all regimes (MOSAIC_PARITY_r05.json,
-``flat_wavefront_end_to_end`` max_rad_err 0.0 on chip).
 """
 
 from __future__ import annotations
@@ -115,39 +85,14 @@ import jax.numpy as jnp
 from wasm_pathtracer_tpu.config import RenderSettings
 from wasm_pathtracer_tpu.models.camera import Camera, primary_rays
 from wasm_pathtracer_tpu.ops import cluster as cl
-from wasm_pathtracer_tpu.ops import probe_pallas as pp
 from wasm_pathtracer_tpu.ops import trace as tr
 from wasm_pathtracer_tpu.ops import integrator as itg
 from wasm_pathtracer_tpu.utils import rng as rnglib
 from wasm_pathtracer_tpu.utils import vecmath as vm
 
-# Demand gate for the second probe round — measured HARMFUL and kept
-# only as an experiment switch (r05 sweep on mesh70k: gate=16 -> 0.94M
-# paths/s vs 1.24M ungated; mid-flight demand is ~50% so the gate only
-# fires during the drain, where it makes the tail lanes crawl one
-# cluster per iteration: +33% iterations for ~no per-iteration saving).
-# 0 (the default) disables the gate.
-PROBE2_GATE_DEN = 0
-# SCAN kernel choice: honor prep.use_fused unless the dense remainder
-# is below this count (0 = always honor).  Measured r05: the XLA dense
-# path is SLOWER in-loop than the fused megakernel even for ONE dense
-# primitive (2.60 vs 2.47 ms/iter) — the real fix is folding the scan
-# into the select kernel (see select_scan below), not swapping scans.
-SCAN_FUSED_MIN_DENSE = 0
 # In-loop regen: read claimed queue slots via dynamic-slice + rank
-# pick instead of a full-table gather (standalone: 0.18 vs 0.27
-# ms/iter at B=16k; in-loop: within noise — XLA overlaps the gather —
-# kept for the lower op count).
+# pick instead of a full-table gather (fewer ops for the same values).
 GEN_CONTIG = True
-# One-kernel select+scan / paired-probe iteration (False = the
-# three-kernel r04 form, kept for A/B and as the streamed fallback).
-# The two fusions toggle independently for in-loop attribution.
-FUSED_SELECT = True
-FUSED_PAIR = True
-# Gather-free shading from kernel-emitted winner rows (False = the
-# per-sid packed-row gather form, kept for A/B; see the r05b section
-# of PROFILE_r05.md for the measured cliff taxonomy behind this).
-ROW_FUSED = True
 
 
 def render_queue_flat(prep: tr.ScenePrep, scene, settings: RenderSettings,
@@ -179,82 +124,12 @@ def render_queue_flat(prep: tr.ScenePrep, scene, settings: RenderSettings,
     if settings.max_bounces == 0:
         return _early(jnp.zeros((HW,), jnp.int32).at[pix_queue].add(1))
 
-    # Light table in ROW form.  The r05 cliff study tried the column
-    # split here (16 per-column 1-D gathers): on mesh70k it was a
-    # small in-loop win (2.26 vs 2.30 ms/iter) but on cloud100k it
-    # LOSES 21% end-to-end (1.05M vs 1.34M paths/s) — these scheduling
-    # cliffs are body-shape-dependent, and rows are the form that is
-    # never catastrophic.  (Both forms are bit-identical in values;
-    # see the r05b section of PROFILE_r05.md.)
     light_tab = itg._light_table(scene)
-    # SCAN kernel choice: with the big families clustered away, the
-    # dense remainder is usually a handful of shapes (plane + light),
-    # and the fused Pallas megakernel's fixed per-dispatch cost
-    # (~0.29 ms at 16k lanes, measured r05) dwarfs the math — the
-    # plain XLA dense path runs the same tests in ~0.05 ms.  Keep the
-    # megakernel only when enough dense work remains to amortize it.
-    n_dense = sum(getattr(prep, f"idx_{k}").shape[0] for k in
-                  ("plane", "sphere", "triangle", "torus", "aarect",
-                   "square"))
-    scan_fused = prep.use_fused and (SCAN_FUSED_MIN_DENSE == 0
-                                     or n_dense >= SCAN_FUSED_MIN_DENSE)
-    prep_nc = dataclasses.replace(prep, cluster=None, use_fused=scan_fused)
+    packed_rows = tr.pack_hit_rows(scene)   # loop-invariant
+    prep_nc = dataclasses.replace(prep, cluster=None)
     sid_grid = cs.slot_to_sid.reshape(C, G)
     eps = settings.epsilon
     max_b = jnp.uint32(settings.max_bounces)
-
-    # Pallas select+probe kernels whenever Pallas is allowed
-    # (prep.use_fused is the session's forward-fast-path switch):
-    # VMEM-resident table when it fits the budget (~131k primitives at
-    # G=128), HBM-streamed per-lane tile DMA beyond it
-    use_pp = prep.use_fused and pp.kernel_ok(cs)
-    table = pp.pack_table(cs) if use_pp else None
-    aabbs = pp.pack_aabbs(cs) if use_pp else None
-    # Fully-fused iteration (r05): the flat loop is a serial CHAIN of
-    # kernel costs (removing any one kernel barely moves ms/iter only
-    # when the removal is rare — the r05 sweep data), so the win is
-    # fewer, bigger kernels: select+dense-scan fused into one
-    # (standalone scan over a 1-primitive remainder cost ~0.3 ms/iter
-    # of pure dispatch), and both probe rounds in one kernel with the
-    # bound re-tightening in-VREG.  VMEM-resident tables only; the
-    # HBM-streamed and XLA regimes keep the 3-kernel form.
-    vmem_ok = use_pp and pp.fits_vmem(cs) and not prep.has_bvh
-    sel_fused = FUSED_SELECT and vmem_ok and pp.dense_scan_ok(prep)
-    pair_fused = FUSED_PAIR and vmem_ok
-    # gather-free shading: both kernels emit the WINNER'S table row
-    # (params + ptype + material-palette entry), the loop carries the
-    # merged row, and shade reconstructs the (B, 24) hit row from it
-    # plus a where-chain over the tiny material palette — no per-sid
-    # row gather, which inside this loop body is a measured ~+1.5
-    # ms/iter scheduling cliff (PROFILE_r05.md).  Requires the palette
-    # (ClusterSet built by bvh.attach_clusters) and a palette small
-    # enough for the static select chain.
-    row_ok = (ROW_FUSED and use_pp and cs.pal_idx is not None
-              and 0 < len(cs.pal_rep) <= 32
-              and scene.textures.shape[0] == 0
-              and pp.dense_scan_ok(prep))
-    row_fused = row_ok and sel_fused and pair_fused
-    # streamed twin: beyond the VMEM table budget the 3-kernel form
-    # stays, but probe_blocks_min(want_row=True) emits the winner row
-    # from the DMA'd tile and the dense winner comes from an XLA
-    # where-chain over the (tiny) dense tables — same gather-free
-    # shade as row_fused
-    row_streamed = row_ok and not (sel_fused and pair_fused)
-    if sel_fused or row_streamed:
-        dense_fams, dense_tabs = pp.pack_dense_tables(
-            prep, scene, cs.pal_idx if row_ok else None)
-        n_dense_cost = sum(n for _, n in dense_fams)
-    if row_fused or row_streamed:
-        # palette VALUES, re-gathered live per dispatch (M static rows;
-        # the entry STRUCTURE bakes at attach time like the geometry)
-        f32 = jnp.float32
-        pal_rows = [jnp.concatenate([
-            scene.albedo[r], scene.emission[r], scene.mat_extra[r],
-            scene.mat_kind[r][None].astype(f32),
-            scene.tex_id[r][None].astype(f32)]) for r in cs.pal_rep]
-        packed_rows = None               # shade is gather-free
-    else:
-        packed_rows = tr.pack_hit_rows(scene)   # loop-invariant
 
     # ring capacity: ceil(S/B) guarantees no stranded queue slot (all
     # lanes capped => B*K >= S paths recorded); slack covers imbalance
@@ -278,11 +153,8 @@ def render_queue_flat(prep: tr.ScenePrep, scene, settings: RenderSettings,
     # in-loop regen reads the queue WITHOUT a big gather: claimed slots
     # are the contiguous range [issued, issued + n), so one dynamic
     # slice pulls the next B queue entries and a rank-indexed pick from
-    # that B-sized block distributes them (measured r05 at B=16k: full
-    # 2.6M-table gather 0.27 ms/iter vs slice+rank 0.18 — gather cost
-    # is per-index, so shrinking the table to one VMEM block is the
-    # only lever).  Padding rows carry the HW drop sentinel and are
-    # never claimed (can requires new_sidx < S).
+    # that B-sized block distributes them.  Padding rows carry the HW
+    # drop sentinel and are never claimed (can requires new_sidx < S).
     pixq_pad = jnp.concatenate(
         [pix_queue, jnp.full((B,), HW, jnp.int32)])
 
@@ -316,13 +188,6 @@ def render_queue_flat(prep: tr.ScenePrep, scene, settings: RenderSettings,
         skip_e=jnp.full((B,), -jnp.inf, jnp.float32),
         skip_c=jnp.full((B,), -1, jnp.int32),
         need_scan=sidx0 < S,
-        # merged winner row as 13 SEPARATE (B,) columns (p0..p8,
-        # ptype, pal — probe_pallas._reduce_min_row cols 2:13); the
-        # t_best scalar-carry pattern.  A single (B, 16) lane-major
-        # carry was measured ~+1.0 ms/iter (minor-dim lane padding +
-        # tripled async carry copies); columns are free.  Garbage
-        # until the lane's first scan, masked like sid_best.
-        win=tuple(jnp.zeros((B,), jnp.float32) for _ in range(11)),
         # --- pending NEE query (set at shade, used at resolve) --------
         pend_contrib=f3(),
         pend_dist=jnp.zeros((B,), jnp.float32),
@@ -345,40 +210,13 @@ def render_queue_flat(prep: tr.ScenePrep, scene, settings: RenderSettings,
         shadow = st["shadow"]
 
         # ---- SCAN: dense trace for freshly started traces --------------
-        # (cursor reset happens BEFORE candidate selection so the
-        # fused select sees the fresh-trace cursor)
         scan = live & st["need_scan"]
         skip_e = jnp.where(scan, -jnp.inf, st["skip_e"])
         skip_c = jnp.where(scan, -1, st["skip_c"])
-        if sel_fused:
-            (e_cur, c_cur, e_b, c_b, e_aft, t_d, sid_d,
-             _row_d) = pp.select_scan(
-                cs, aabbs, dense_fams, dense_tabs, tr_o, tr_d,
-                skip_e, skip_c, C)
-            c_d = jnp.int32(n_dense_cost)
-        else:
-            t_d, sid_d, _, c_d = tr.trace_scene(prep_nc, scene, tr_o,
-                                                tr_d)
+        with jax.named_scope("flat_scan"):
+            t_d, sid_d, _, c_d = tr.trace_scene(prep_nc, scene, tr_o, tr_d)
         t_best = jnp.where(scan, t_d, st["t_best"])
         sid_best = jnp.where(scan, sid_d, st["sid_best"])
-        win = st["win"]
-        if row_fused or row_streamed:
-            # DENSE winner columns via a static where-chain over the
-            # tiny dense remainder (n <= 64 by dense_scan_ok) — NOT
-            # the kernel's lane-oriented dense row, whose per-iteration
-            # transpose is another relayout cliff.  Chain entries
-            # compare sid_d against each dense table row's sid column;
-            # padding rows are excluded by the static family counts.
-            col_d = [jnp.zeros((B,), jnp.float32) for _ in range(11)]
-            for (fam, n), tab in zip(dense_fams, dense_tabs):
-                for k in range(n):
-                    m = sid_d == tab[k, 9].astype(jnp.int32)
-                    vals = ([tab[k, j] for j in range(9)]
-                            + [jnp.float32(fam), tab[k, 10]])
-                    col_d = [jnp.where(m, v, c)
-                             for v, c in zip(vals, col_d)]
-            win = tuple(jnp.where(scan, v, c)
-                        for v, c in zip(col_d, win))
         cost = st["cost"] + jnp.where(scan, c_d, 0)
 
         # ---- PROBE x2: the two lex-min unvisited clusters per lane -----
@@ -388,128 +226,59 @@ def render_queue_flat(prep: tr.ScenePrep, scene, settings: RenderSettings,
         # both), and both get probed this iteration — most traces need
         # <= 2 probe rounds, so the (B, C) slab cost runs ~once per
         # trace instead of once per probe
-        if sel_fused:
-            pass                       # candidates came from select_scan
-        elif use_pp:
-            e_cur, c_cur, e_b, c_b, e_aft = pp.select_blocks(
-                cs, aabbs, tr_o, tr_d, skip_e, skip_c, C)
-        else:
+        def _lexmin(ent):
+            # lex tie-break: among minimal entries, the lowest id
+            e = jnp.min(ent, axis=1)
+            c = jnp.minimum(
+                jnp.min(jnp.where(ent == e[:, None], cid, C), axis=1),
+                C - 1)
+            rest = jnp.where((ent > e[:, None]) |
+                             ((ent == e[:, None]) & (cid > c[:, None])),
+                             ent, jnp.inf)
+            return e, c, rest
+
+        with jax.named_scope("flat_select"):
             ent = cl._rays_vs_boxes(tr_o, tr_d, cs.lo, cs.hi)  # (B, C)
             cid = jax.lax.broadcasted_iota(jnp.int32, ent.shape, 1)
             unvisited = (ent > skip_e[:, None]) | \
                 ((ent == skip_e[:, None]) & (cid > skip_c[:, None]))
             ent = jnp.where(unvisited, ent, jnp.inf)
-
-            def _lexmin(ent):
-                # lex tie-break: among minimal entries, the lowest id
-                e = jnp.min(ent, axis=1)
-                c = jnp.minimum(
-                    jnp.min(jnp.where(ent == e[:, None], cid, C), axis=1),
-                    C - 1)
-                rest = jnp.where((ent > e[:, None]) |
-                                 ((ent == e[:, None]) & (cid > c[:, None])),
-                                 ent, jnp.inf)
-                return e, c, rest
-
             e_cur, c_cur, ent1 = _lexmin(ent)
             e_b, c_b, ent2 = _lexmin(ent1)
             e_aft = jnp.min(ent2, axis=1)
 
-        def _probe(c_sel, probing, t_best, sid_best, win, cost):
-            out_row = None
-            if use_pp and row_streamed:
-                # streamed gather-free form: the kernel emits the full
-                # winner row from the DMA'd tile
-                out_row = pp.probe_blocks_min(cs, table, tr_o, tr_d,
-                                              c_sel, want_row=True)
-                tloc = out_row[:, 0]
-                sid_loc = out_row[:, 1].astype(jnp.int32)
-            elif use_pp:
-                # min + argmin-sid happen inside the kernel — no (B, G)
-                # HBM roundtrip, no XLA post-reduction
-                tloc, sid_loc = pp.probe_blocks_min(cs, table, tr_o,
-                                                    tr_d, c_sel)
-            else:
-                block = jnp.take(cs.blocks, c_sel, axis=0)  # (B, G, 9)
-                btype = jnp.take(cs.btype, c_sel, axis=0)   # (B, G)
-                t_blk = cl._block_test(tr_o, tr_d, block, btype,
-                                       cs.families)
-                jloc = jnp.argmin(t_blk, axis=1).astype(jnp.int32)
-                tloc = jnp.min(t_blk, axis=1)
-                sid_loc = jnp.take(sid_grid, c_sel, axis=0)[
-                    jnp.arange(B), jloc]                    # (B,)
+        @jax.named_scope("flat_probe")
+        def _probe(c_sel, probing, t_best, sid_best, cost):
+            block = jnp.take(cs.blocks, c_sel, axis=0)      # (B, G, 9)
+            btype = jnp.take(cs.btype, c_sel, axis=0)       # (B, G)
+            t_blk = cl._block_test(tr_o, tr_d, block, btype, cs.families)
+            jloc = jnp.argmin(t_blk, axis=1).astype(jnp.int32)
+            tloc = jnp.min(t_blk, axis=1)
+            sid_loc = jnp.take(sid_grid, c_sel, axis=0)[
+                jnp.arange(B), jloc]                        # (B,)
             better = probing & (tloc < t_best)
             t_best = jnp.where(better, tloc, t_best)
             sid_best = jnp.where(better, sid_loc, sid_best)
-            if out_row is not None:
-                win = tuple(jnp.where(better, out_row[:, 2 + j], c)
-                            for j, c in enumerate(win))
             cost = cost + jnp.where(probing, G, 0)
-            return t_best, sid_best, win, cost
+            return t_best, sid_best, cost
 
         bound = jnp.where(shadow, jnp.minimum(t_best, st["pend_dist"]),
                           t_best)
         probing = live & (e_cur < bound)
         skip_e = jnp.where(probing, e_cur, skip_e)
         skip_c = jnp.where(probing, c_cur, skip_c)
+        t_best, sid_best, cost = _probe(c_cur, probing, t_best, sid_best,
+                                        cost)
 
-        if pair_fused:
-            # both probe rounds in one kernel (raw reductions); the
-            # masking/bound logic stays in XLA exactly as the two-call
-            # form, so the kernel has NO feedback inputs (see
-            # probe_pair_raw's docstring for why that matters)
-            row1, row2 = pp.probe_pair_raw(
-                cs, table, tr_o, tr_d, c_cur, c_b)
-            tl1, sv1 = row1[:, 0], row1[:, 1].astype(jnp.int32)
-            tl2, sv2 = row2[:, 0], row2[:, 1].astype(jnp.int32)
-            better = probing & (tl1 < t_best)
-            t_best = jnp.where(better, tl1, t_best)
-            sid_best = jnp.where(better, sv1, sid_best)
-            if row_fused:
-                win = tuple(jnp.where(better, row1[:, 2 + j], c)
-                            for j, c in enumerate(win))
-            cost = cost + jnp.where(probing, G, 0)
-            bound = jnp.where(shadow,
-                              jnp.minimum(t_best, st["pend_dist"]),
-                              t_best)
-            probing2 = probing & (e_b < bound)
-            skip_e = jnp.where(probing2, e_b, skip_e)
-            skip_c = jnp.where(probing2, c_b, skip_c)
-            better2 = probing2 & (tl2 < t_best)
-            t_best = jnp.where(better2, tl2, t_best)
-            sid_best = jnp.where(better2, sv2, sid_best)
-            if row_fused:
-                win = tuple(jnp.where(better2, row2[:, 2 + j], c)
-                            for j, c in enumerate(win))
-            cost = cost + jnp.where(probing2, G, 0)
-        else:
-            t_best, sid_best, win, cost = _probe(
-                c_cur, probing, t_best, sid_best, win, cost)
-
-            # second round against the bound tightened by the first —
-            # exactly the lockstep retire loop's pruning sequence.
-            # (A demand gate on this round was tried and REVERTED —
-            # see PROBE2_GATE_DEN above.)
-            bound = jnp.where(shadow,
-                              jnp.minimum(t_best, st["pend_dist"]),
-                              t_best)
-            probing2 = probing & (e_b < bound)
-            if PROBE2_GATE_DEN:
-                run2 = jnp.sum(probing2.astype(jnp.int32)) \
-                    * PROBE2_GATE_DEN >= B
-                probing2 = probing2 & run2
-                skip_e = jnp.where(probing2, e_b, skip_e)
-                skip_c = jnp.where(probing2, c_b, skip_c)
-                t_best, sid_best, win, cost = jax.lax.cond(
-                    run2,
-                    lambda a: _probe(*a),
-                    lambda a: (a[2], a[3], a[4], a[5]),
-                    (c_b, probing2, t_best, sid_best, win, cost))
-            else:
-                skip_e = jnp.where(probing2, e_b, skip_e)
-                skip_c = jnp.where(probing2, c_b, skip_c)
-                t_best, sid_best, win, cost = _probe(
-                    c_b, probing2, t_best, sid_best, win, cost)
+        # second round against the bound tightened by the first —
+        # exactly the lockstep retire loop's pruning sequence
+        bound = jnp.where(shadow, jnp.minimum(t_best, st["pend_dist"]),
+                          t_best)
+        probing2 = probing & (e_b < bound)
+        skip_e = jnp.where(probing2, e_b, skip_e)
+        skip_c = jnp.where(probing2, c_b, skip_c)
+        t_best, sid_best, cost = _probe(c_b, probing2, t_best, sid_best,
+                                        cost)
 
         # ---- completion ------------------------------------------------
         # next candidate strictly after the (possibly advanced) cursor
@@ -538,31 +307,12 @@ def render_queue_flat(prep: tr.ScenePrep, scene, settings: RenderSettings,
         # ---- SHADE: finished primary traces ----------------------------
         shade = done & ~shadow
         slot0 = st["bounce"] * itg._SLOTS_PER_BOUNCE
-        if row_fused or row_streamed:
-            # hit-row COLUMNS rebuilt from the kernel-emitted winner
-            # columns + a static where-chain over the material palette
-            # — bit-identical values to packed_rows[sid_best] (same
-            # source arrays; palette entries group byte-identical
-            # rows), but with zero gathers and only (B,) carries
-            pal_i = win[10].astype(jnp.int32)
-            mat = [jnp.broadcast_to(pal_rows[0][j], (B,))
-                   for j in range(13)]
-            for k in range(1, len(pal_rows)):
-                mk = pal_i == k
-                mat = [jnp.where(mk, pal_rows[k][j], mj)
-                       for j, mj in enumerate(mat)]
-            # pack_hit_rows column order: params 0:9, albedo 9:12,
-            # emission 12:15, extra 15:20, ptype 20, kind 21, tex 22
-            hit_row = (list(win[0:9]) + mat[0:11] + [win[9]]
-                       + mat[11:13] + [jnp.zeros((B,), jnp.float32)])
-        else:
-            hit_row = None
         (o_n, d_n, tp_n, col_n, alive_n, hdb_n, absorb_n), req = \
             itg._shade_core(prep, scene, settings, light_tab, photon_grid,
                             tr_o, tr_d, st["tp"], col, shade, st["hdb"],
                             st["absorb"], slot0, st["rid"], seed,
                             t_best, sid_best, jnp.isfinite(t_best),
-                            packed_rows=packed_rows, hit_row=hit_row)
+                            packed_rows=packed_rows)
         # adopt estimator updates ONLY on shade lanes: _shade_core's
         # carry passes (tr_o, tr_d) — the ray currently being traced —
         # through unchanged on non-scatter lanes, so adopting o_n/d_n
@@ -647,7 +397,7 @@ def render_queue_flat(prep: tr.ScenePrep, scene, settings: RenderSettings,
             live=(live & ~end) | can,
             tr_o=tr_o2, tr_d=tr_d2,
             shadow=jnp.where(start, pend, shadow),
-            t_best=t_best, sid_best=sid_best, win=win,
+            t_best=t_best, sid_best=sid_best,
             skip_e=skip_e, skip_c=skip_c,
             need_scan=jnp.where(start, True, jnp.zeros((B,), bool)),
             pend_contrib=pend_contrib,

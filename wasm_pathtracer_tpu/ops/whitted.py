@@ -6,7 +6,7 @@ as commented-out materials and the never-shaded point/spot/directional
 lights (``src/scenes.rs:113-130``, ``src/graphics/lights/``).
 BASELINE.json configs 1-2 name "1-bounce Whitted" and "4-bounce Whitted
 with reflect/refract/Fresnel + textures", so this module restores the
-capability TPU-natively:
+capability in batched form:
 
 - the recursion tree (reflect + refract branches) is **unrolled at
   trace time** to the configured depth — each level is one fully masked
@@ -42,7 +42,7 @@ def _direct_light(prep, scene: SceneData, p, n, albedo, eps,
     """Direct illumination at a diffuse surface point (hard shadows).
 
     Whitted shading is deterministic, so EVERY area light contributes
-    (centroid-sampled).  The occlusion queries are batched TPU-style:
+    (centroid-sampled).  The occlusion queries are batched:
     lights are processed in chunks of ``light_chunk`` under ``lax.scan``,
     each chunk ONE wavefront shadow trace over (R * chunk) rays — the
     museum's 108 lights cost 7 batched traces per recursion level

@@ -3,17 +3,18 @@
 The reference's parallelism is pixel-partition data parallelism: JS
 assigns each WASM worker a pixel subset (``src/wasm_interface.rs:26-30``,
 partitioner ``src_ts/client/util.ts:15-24``), with the scene replicated
-per worker and frames merged through a SharedArrayBuffer.  The TPU-native
+per worker and frames merged through a SharedArrayBuffer.  The JAX
 equivalent (SURVEY §2c):
 
-- a 1-D ``jax.sharding.Mesh`` over all chips with one axis, ``rays``;
+- a 1-D ``jax.sharding.Mesh`` over all devices with one axis, ``rays``
+  (plain 1-D suits cards joined all to all, e.g. NVLink);
 - ray/pixel batches sharded over ``rays`` via ``shard_map``; the scene
   (shape table, BVH, photon grid, material leaves) **replicated**;
 - per-ray counter RNG (no shared state), so results are bit-identical
   under any device count;
 - gradients of replicated scene/camera parameters all-reduced with
-  ``psum`` riding the ICI — the collective XLA schedules to overlap with
-  the backward pass.
+  ``psum`` — the collective XLA schedules to overlap with the backward
+  pass.
 
 Multi-host: the same code runs under ``jax.distributed.initialize``;
 ``jax.devices()`` then spans hosts and the ``rays`` axis crosses DCN
@@ -22,6 +23,7 @@ only at the psum boundary.
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 from typing import Callable
 
@@ -91,7 +93,7 @@ def _queue_sharded(renderer, mesh: Mesh, prep: trace.ScenePrep, scene,
     """Shared shard_map wrapper for the persistent-wavefront renderers.
 
     Each device runs the full wavefront over its queue shard with the
-    scene replicated; partial frame sums ``psum`` over ICI.  Path RNG
+    scene replicated; partial frame sums ``psum`` over the mesh.  Path RNG
     is keyed by the GLOBAL queue index (``axis_index * shard +
     rid_base``), so every path's radiance is a pure function of
     (queue, seed) — independent of the device count.  Per-pixel ORDER
@@ -112,15 +114,9 @@ def _queue_sharded(renderer, mesh: Mesh, prep: trace.ScenePrep, scene,
     # ONE-SIDED lane clamp: a persistent-wavefront iteration costs
     # ~full lane width regardless of live lanes, so when the
     # per-device shard shrinks (more devices, same queue) a fixed wide
-    # wavefront pays its whole drain tail at every device count — the
-    # r04 SCALING flat-vs-queue differential (0.43 vs 0.82 aggregate
-    # at 8 virtual devices) was exactly this lane-sizing artifact.
-    # The optimum tracks ~shard/32 across every measured workload
-    # (single-chip sweeps: 16k lanes at S=524k, 8k at S=262k; the
-    # SCALING_r05 n=8 sweep: 2k lanes at 65k-path shards restores
-    # aggregate efficiency ~1.0 vs 0.57 at 16k).  Explicit SMALLER
-    # values are honored; lane width never exceeds
-    # max(1024, shard/32).
+    # wavefront pays its whole drain tail at every device count.  The
+    # width is capped near shard/32; explicit SMALLER values are
+    # honored; lane width never exceeds max(1024, shard/32).
     lanes_per_device = min(lanes_per_device, max(1024, shard // 32))
 
     @functools.partial(
@@ -166,7 +162,7 @@ def render_queue_flat_sharded(mesh: Mesh, prep: trace.ScenePrep, scene,
                               photon_grid=None):
     """The FLAT persistent wavefront (``wavefront.render_queue_flat``)
     under ``shard_map`` — the production renderer for cluster scenes
-    (meshes, clouds), i.e. the TPU realization of the reference's
+    (meshes, clouds), i.e. the device-mesh realization of the reference's
     N-workers-over-pixel-subsets design (``src/wasm_interface.rs:26-30``,
     ``src_ts/client/util.ts:15-24``) for its LARGEST workloads
     (``src_ts/client/index.ts:213-226``).
@@ -248,11 +244,13 @@ def make_train_step(mesh: Mesh, prep: trace.ScenePrep,
     ``rays`` axis inside shard_map; XLA overlaps the all-reduce with the
     backward computation.
     """
-    if edge_aware_screen and (prep.cluster is not None or prep.has_bvh
-                              or prep.use_fused or prep.use_pallas):
+    # gradients take the differentiable XLA trace: the forward-only
+    # Pallas scene kernel (ScenePrep.use_fused) has no VJP
+    prep = dataclasses.replace(prep, use_fused=False)
+    if edge_aware_screen and (prep.cluster is not None or prep.has_bvh):
         raise ValueError("edge_aware_screen=True requires the dense "
-                         "differentiable trace path (no BVH/cluster/"
-                         "fused/Pallas prep)")
+                         "differentiable trace path (no BVH/cluster "
+                         "prep)")
     if train_lights and prep.has_bvh:
         # A BVH prep carries BAKED triangle geometry (bvh_tri_rows):
         # intersections and occlusion would silently use stale light
@@ -359,7 +357,7 @@ def make_train_step(mesh: Mesh, prep: trace.ScenePrep,
             loss, g_leaves = jax.value_and_grad(loss_fn, argnums=0)(
                 leaves, camera_s)
             g_cam = jax.tree.map(jnp.zeros_like, camera_s)
-        # gradient all-reduce over the ray shards (ICI psum)
+        # gradient all-reduce over the ray shards (psum)
         g_leaves = jax.tree.map(lambda g: jax.lax.psum(g, "rays"), g_leaves)
         g_cam = jax.tree.map(lambda g: jax.lax.psum(g, "rays"), g_cam)
         loss = jax.lax.psum(loss, "rays")

@@ -63,6 +63,9 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv=None):
     args = build_parser().parse_args(argv)
 
+    from wasm_pathtracer_tpu.runtime import compile_cache
+    compile_cache.enable()
+
     from wasm_pathtracer_tpu.config import RenderSettings, RenderType
     from wasm_pathtracer_tpu.models.camera import Camera
     from wasm_pathtracer_tpu.runtime.session import Session

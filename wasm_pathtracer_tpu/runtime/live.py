@@ -344,6 +344,8 @@ def main(argv=None):
     p.add_argument("--max-bounces", type=int, default=8)
     args = p.parse_args(argv)
 
+    from wasm_pathtracer_tpu.runtime import compile_cache
+    compile_cache.enable()
     st = RenderSettings(render_type=RenderType.NORMAL_NEE,
                         max_bounces=args.max_bounces)
     sess = Session(args.width, args.height, args.scene, left=st, right=st)

@@ -1,4 +1,4 @@
-"""Render session: the TPU-native replacement for the reference's
+"""Render session: the batched replacement for the reference's
 WASM session layer + worker runtime (L2-L4).
 
 ``Session`` mirrors the 9-function WASM API of
@@ -119,8 +119,7 @@ class RenderInstance:
             # per-step queue — the session's queue is only one batch
             # (unlike bench.py's multi-million-path queues), so wider
             # wavefronts pay their whole drain tail every step (at
-            # lanes == batch/2 the tail is ~50% of the step; measured
-            # 543k vs 843k paths/s on the 128x128 CLI scene).  The
+            # lanes == batch/2 the tail is ~50% of the step).  The
             # 1024 floor applies only to the derived cap; an EXPLICIT
             # smaller regen_lanes (tests, --lanes) is always honored,
             # and lanes never exceeds the batch.
@@ -282,19 +281,16 @@ class Session:
 
     # -- plumbing ----------------------------------------------------------
     def _prepare(self, scene: SceneData) -> trace.ScenePrep:
-        import jax
-        # fused whole-scene Pallas megakernel for forward rendering on
-        # TPU (ops/scene_pallas.py); the XLA paths remain the portable
-        # and differentiable route (and the only one off-TPU)
-        prep = trace.prepare(scene,
-                             use_fused=jax.default_backend() != "cpu")
+        # trace.prepare makes the platform decision (the Pallas scene
+        # kernel on the GPU, XLA elsewhere); the session only renders
+        # forward, so the kernel's missing VJP never matters here
+        prep = trace.prepare(scene)
         if self.use_bvh is False:
             return prep
-        # cluster-dense is the TPU acceleration path over ALL finite
-        # primitive families (see ops.cluster for why a per-ray BVH
-        # walk is not); per-family auto threshold unless forced.  The
-        # fused megakernel still covers whatever stays dense — the two
-        # fast paths compose.
+        # cluster-dense is the acceleration path over ALL finite
+        # primitive families (see ops.cluster); per-family auto
+        # threshold unless forced.  The scene kernel still covers
+        # whatever stays dense — the two fast paths compose.
         from wasm_pathtracer_tpu.ops import bvh
         min_count = 1 if self.use_bvh else \
             RenderSettings().bvh_min_triangles

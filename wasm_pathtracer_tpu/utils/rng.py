@@ -3,7 +3,7 @@
 The reference threads one mutable xorshift32 stream through everything
 (``src/rng.rs``, seed 0xBABABEBE), shared via ``Rc<RefCell<..>>`` — a
 design that cannot vectorize and whose output depends on global call
-order.  The TPU-native replacement is a *counter-based* hash RNG: every
+order.  The batched replacement is a *counter-based* hash RNG: every
 draw is a pure function of ``(seed, ray_id, sample_id, slot)``, so it is
 reproducible, order-independent, shardable across a device mesh with no
 communication, and identical between the JAX kernels and the NumPy
@@ -11,7 +11,7 @@ reference tracer used by the tests.
 
 The hash is pcg3d (Jarzynski & Olano, "Hash Functions for GPU
 Rendering", JCGT 2020) — 3 x 32-bit in, 3 x 32-bit out, excellent
-statistical quality and only ~20 VPU ops.
+statistical quality and only ~20 integer ops.
 
 ``Xorshift32`` reimplements the reference generator *for host-side scene
 construction only*: the museum scene's light colors are shuffled with it

@@ -2,7 +2,7 @@
 
 The reference implements these as scalar ``Vec3`` methods
 (``src/math/vec3.rs``).  Here every function operates on arrays of shape
-``(..., 3)`` so a whole ray batch flows through the VPU at once, and all
+``(..., 3)`` so a whole ray batch flows through at once, and all
 of them are differentiable.
 """
 
